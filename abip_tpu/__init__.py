@@ -1,82 +1,36 @@
-"""ABIP-TPU: a TPU-native ADMM-based interior point solver framework.
+"""Former name of the `abip` package, kept so that existing code runs.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
-ABIP solver (leavesgrp/ABIP): LP and conic/QP solving via an outer
-interior-point path-following loop around an inner ADMM loop on the
-homogeneous self-dual embedding.
-
-Quick start::
-
-    import abip_tpu
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6)
-
-The solver needs float64; importing this package enables JAX x64 mode
-(set ABIP_TPU_NO_X64=1 to opt out and manage precision yourself).
+Importing this package, or any ``<this package>.<module>`` below it,
+returns the very module object of ``abip`` / ``abip.<module>``: one copy
+of each module, so classes, caches and jitted functions are shared.
 """
-import os
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-if not os.environ.get("ABIP_TPU_NO_X64"):
-    import jax
+import abip
 
-    jax.config.update("jax_enable_x64", True)
+_PREFIX = __name__ + "."
 
-if not os.environ.get("ABIP_TPU_NO_HIGHEST_MATMUL"):
-    import jax
 
-    # The TPU MXU rounds f32 matmul operands to bf16 at DEFAULT matmul
-    # precision (~4e-3 relative error).  Every f32 matmul in this
-    # package is an anchored-delta or preconditioner apply whose error
-    # budget assumes true-f32 accuracy (~1e-7); bf16-quality applies
-    # made marginal lanes take 20-60x the host-parity ADMM count on TPU
-    # (round-3 straggler pathology -- see
-    # `parallel/batched.device_solve_lp`).  The hot entry points also
-    # set this per-trace; the global default covers the remaining f32
-    # users (segmented streams, PDHG mixed mode, Schur PCG).  No effect
-    # on CPU or on f64 ops.
-    jax.config.update("jax_default_matmul_precision", "highest")
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<this package>.<module>`` to ``abip.<module>``."""
 
-# Opt-in persistent compilation cache: suite runs over many problem
-# shapes pay a fresh XLA compile per shape per process; pointing
-# ABIP_COMPILE_CACHE at a directory makes compiles survive across
-# processes (measured: netlib-mini SGM-10 3.5s -> sub-second warm).
-_cache_dir = os.environ.get("ABIP_COMPILE_CACHE")
-if _cache_dir:
-    import jax
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(_PREFIX):
+            return None
+        return importlib.util.spec_from_loader(fullname, self)
 
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    def create_module(self, spec):
+        module = importlib.import_module("abip." + spec.name[len(_PREFIX):])
+        spec.loader_state = module.__spec__
+        return module
 
-from .settings import Settings, Status          # noqa: E402
-from .dispatch import solve, solve_general      # noqa: E402
-from .problem import LinearOperator             # noqa: E402
-from .lp import solve_lp, LPWorkspace, LPSolution  # noqa: E402
-from .cones import ConeSpec                     # noqa: E402
-from .qcp import solve_qcp, ConicWorkspace, ConicSolution, conic_defaults  # noqa: E402
-from .pdhg import solve_lp_pdhg, solve_qcp_pdhg  # noqa: E402
-from .diff import (solve_lp_grad, solve_qcp_grad, solve_lasso_grad,  # noqa: E402
-                   solve_svm_grad)
+    def exec_module(self, module):
+        # the import machinery stamped the alias spec on the shared module
+        module.__spec__ = module.__spec__.loader_state
 
-__version__ = "0.1.0"
 
-__all__ = [
-    "solve",
-    "solve_general",
-    "Settings",
-    "Status",
-    "LinearOperator",
-    "ConeSpec",
-    "solve_lp",
-    "LPWorkspace",
-    "LPSolution",
-    "solve_qcp",
-    "ConicWorkspace",
-    "ConicSolution",
-    "conic_defaults",
-    "solve_lp_pdhg",
-    "solve_qcp_pdhg",
-    "solve_lp_grad",
-    "solve_qcp_grad",
-    "solve_lasso_grad",
-    "solve_svm_grad",
-    "__version__",
-]
+sys.meta_path.insert(0, _Alias())
+sys.modules[__name__] = abip

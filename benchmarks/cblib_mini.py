@@ -1,7 +1,7 @@
 """cblib-mini: a committed suite of native-CBF conic instances.
 
 The reference's CBLIB protocol (`scripts/bench-qcp/test_cblib.m`) reads
-.cbf instances through Mosek; our reader is native (`abip_tpu.io.cbf`).
+.cbf instances through Mosek; our reader is native (`abip.io.cbf`).
 CBLIB data itself is not redistributable here, so this suite re-exports
 the conic-mini oracle instances (`benchmarks/conic_mini.instances`) as
 .cbf text in THREE representations, exercising the whole reader:
@@ -30,8 +30,8 @@ import os
 import numpy as np
 import scipy.sparse as sp
 
-from abip_tpu.cones import ConeSpec
-from abip_tpu.io.cbf import write_cbf
+from abip.cones import ConeSpec
+from abip.io.cbf import write_cbf
 
 
 def write_cbf_rowform(path, A, b, c, cones: ConeSpec, objsense="MIN",

@@ -34,8 +34,8 @@ import os
 import numpy as np
 import scipy.sparse as sp
 
-from abip_tpu.cones import ConeSpec
-from abip_tpu.io.sedumi import write_sedumi_mat
+from abip.cones import ConeSpec
+from abip.io.sedumi import write_sedumi_mat
 
 
 def _complementary_pair(cones: ConeSpec, rng):

@@ -22,7 +22,7 @@ from typing import Callable, Dict
 import numpy as np
 import scipy.sparse as sp
 
-from abip_tpu.io.mps import GeneralLP
+from abip.io.mps import GeneralLP
 
 from .netlib_mini import _lp
 
@@ -116,7 +116,7 @@ MANIFEST: Dict[str, Callable[[], GeneralLP]] = {
 
 
 def write_suite(outdir: str) -> None:
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps_write import write_mps
 
     os.makedirs(outdir, exist_ok=True)
     for name, build in MANIFEST.items():

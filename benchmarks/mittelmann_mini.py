@@ -6,7 +6,7 @@ harder instances than Netlib: multiperiod staircase structures, network
 flows on big grids, and wide degenerate problems.  This module generates
 those structures at the largest sizes this CPU environment solves in
 seconds-to-minutes (m up to ~1500, n up to ~6000); the same builders
-scale up by argument for TPU runs.
+scale up by argument for accelerator runs.
 
 Usage::
 
@@ -22,7 +22,7 @@ from typing import Callable, Dict
 import numpy as np
 import scipy.sparse as sp
 
-from abip_tpu.io.mps import GeneralLP
+from abip.io.mps import GeneralLP
 
 from .netlib_mini import _lp
 
@@ -137,7 +137,7 @@ MANIFEST: Dict[str, Callable[[], GeneralLP]] = {
 
 
 def write_suite(outdir: str) -> None:
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps_write import write_mps
 
     os.makedirs(outdir, exist_ok=True)
     for name, build in MANIFEST.items():

@@ -10,8 +10,8 @@ Usage::
 
     python -m benchmarks.ml_table \
         --ref benchmarks/results/r04_ml_lasso_paper_ref \
-        --ours benchmarks/results/r04_ml_lasso_paper_tpu \
-        -o benchmarks/results/r04_ml_lasso_paper_table.json
+        --ours results/ml_lasso_paper_device \
+        -o results/ml_lasso_paper_table.json
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ref", required=True)
     ap.add_argument("--ours", required=True)
-    ap.add_argument("--label", default="abip_tpu device route (TPU v5e)")
+    ap.add_argument("--label", default="abip device route")
     ap.add_argument("-o", "--out", default=None)
     args = ap.parse_args(argv)
 

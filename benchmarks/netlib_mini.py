@@ -27,7 +27,7 @@ from typing import Callable, Dict
 import numpy as np
 import scipy.sparse as sp
 
-from abip_tpu.io.mps import GeneralLP
+from abip.io.mps import GeneralLP
 
 
 def _lp(c, A, row_lo, row_hi, lb, ub, name, maximize=False) -> GeneralLP:
@@ -208,7 +208,7 @@ MANIFEST: Dict[str, Callable[[], GeneralLP]] = {
 
 
 def write_suite(outdir: str) -> None:
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps_write import write_mps
 
     os.makedirs(outdir, exist_ok=True)
     for name, build in MANIFEST.items():

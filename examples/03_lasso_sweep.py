@@ -4,13 +4,13 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for TPU
+if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for the GPU
     import jax
 
     jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
-from abip_tpu.problems.lasso import solve_lasso_batch
+from abip.problems.lasso import solve_lasso_batch
 
 rng = np.random.default_rng(2)
 m, n, B = 40, 15, 6

@@ -4,13 +4,13 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for TPU
+if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for the GPU
     import jax
 
     jax.config.update("jax_platforms", "cpu")
 import sys
 
-from abip_tpu.io.presolve import solve_mps
+from abip.io.presolve import solve_mps
 
 DEFAULT = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                        "suites", "netlib_mini", "blend01.mps")

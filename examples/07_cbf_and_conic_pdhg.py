@@ -8,14 +8,14 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for TPU
+if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for the GPU
     import jax
 
     jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: F401
 
-from abip_tpu import ConeSpec, solve_qcp_pdhg
-from abip_tpu.io.cbf import solve_cbf, write_cbf
+from abip import ConeSpec, solve_qcp_pdhg
+from abip.io.cbf import solve_cbf, write_cbf
 from benchmarks.conic_mini import randcone
 
 name, A, b, c, cones, pobj_star = randcone(

@@ -18,14 +18,14 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for TPU
+if os.environ.get("ABIP_CPU", "1") != "0":  # CPU default; ABIP_CPU=0 for the GPU
     import jax
 
     jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
-import abip_tpu
-from abip_tpu.lp import LPWorkspace
+import abip
+from abip.lp import LPWorkspace
 
 rng = np.random.default_rng(0)
 m, n = 40, 400
@@ -36,7 +36,7 @@ b0 = A @ (rng.random(n) + 0.5)
 c = A.T @ rng.standard_normal(m) + rng.random(n) + 0.5
 TICKS = 10
 
-w = LPWorkspace(A, b0, c, abip_tpu.Settings(eps=1e-6, adaptive=False))
+w = LPWorkspace(A, b0, c, abip.Settings(eps=1e-6, adaptive=False))
 prev = w.solve()
 w.update_problem(b0 * 1.001, c)   # absorb the one-off compile off-clock
 w.solve(warm=(prev.x, prev.y, prev.s))
@@ -52,7 +52,7 @@ served = (time.perf_counter() - t0) / TICKS
 t0 = time.perf_counter()
 for k in range(TICKS):
     b_k = b0 * (1.0 + 0.02 * np.sin(0.3 * (k + 1)))
-    s_k = abip_tpu.solve_lp(A, b_k, c, eps=1e-6, adaptive=False)
+    s_k = abip.solve_lp(A, b_k, c, eps=1e-6, adaptive=False)
     assert s_k.status_name == "Solved"
 cold = (time.perf_counter() - t0) / TICKS
 

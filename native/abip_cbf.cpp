@@ -1,9 +1,9 @@
 // Native CBLIB Conic Benchmark Format (.cbf) parser.
 //
-// The C++ twin of abip_tpu/io/cbf.py:parse_cbf (same accepted grammar,
+// The C++ twin of abip/io/cbf.py:parse_cbf (same accepted grammar,
 // same rejections), for large CBLIB files where Python tokenization
 // dominates (measured 1.8x on a 3 MB / 110k-coordinate instance).
-// Exposed through ctypes (abip_tpu/io/native.py) and validated against
+// Exposed through ctypes (abip/io/native.py) and validated against
 // the Python parser on the committed cblib-mini suite
 // (tests/test_native.py), including strict-rejection parity.
 //

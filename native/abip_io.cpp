@@ -1,10 +1,10 @@
-// ABIP-TPU native IO: fast MPS parser.
+// ABIP native IO: fast MPS parser.
 //
-// Host-side counterpart of the Python reader (abip_tpu/io/mps.py) for large
+// Host-side counterpart of the Python reader (abip/io/mps.py) for large
 // benchmark suites -- the role MATLAB's mpsread plays in the reference
 // pipeline (/root/reference/scripts/bench-lp/preprocess.m:15), implemented
 // as a zero-dependency C++ shared library exposed through a C API consumed
-// via ctypes (abip_tpu/io/native.py).
+// via ctypes (abip/io/native.py).
 //
 // Semantics match the Python reader: sections NAME/OBJSENSE/ROWS/COLUMNS/
 // RHS/RANGES/BOUNDS/ENDATA, free format, standard RANGES rules, the

@@ -3,7 +3,7 @@ finite pobj/dobj/residuals.
 
 The reference always reports a finite dual objective alongside the
 primal in its result struct (`/root/reference/src/abip-qcp/include/
-abip.h:139-158`); round 4 shipped a TPU LASSO record whose "Solved"
+abip.h:139-158`); round 4 shipped a device LASSO record whose "Solved"
 status carried dobj=NaN through a broken extract path.  The bench
 layer now downgrades any such record to 'Unverified' before it is
 written (`benchmarks/ml_sweep._validate_solved`, applied by both the

@@ -8,7 +8,7 @@ needs the Mosek reader; ours is native).
 import numpy as np
 import pytest
 
-from abip_tpu.io.cbf import (cbf_to_conic, parse_cbf, read_cbf, solve_cbf,
+from abip.io.cbf import (cbf_to_conic, parse_cbf, read_cbf, solve_cbf,
                              write_cbf)
 
 # -- hand-written CBF instances --------------------------------------
@@ -215,8 +215,8 @@ def test_roundtrip_randcone(tmp_path):
     solved objective matches the generator's known optimum."""
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.dispatch import solve
+    from abip import ConeSpec
+    from abip.dispatch import solve
 
     cones = ConeSpec(soc=(5, 4), rsoc=(3,), free=2, nonneg=10)
     name, A, b, c, cn, pobj_star = randcone("rt", 8, cones, seed=3)
@@ -277,7 +277,7 @@ def test_roundtrip_objsense_and_const(tmp_path):
     x0 = rng.random(6) + 0.5
     b = A @ x0
     c = rng.random(6) + 0.5
-    from abip_tpu import ConeSpec
+    from abip import ConeSpec
 
     path = tmp_path / "max.cbf"
     write_cbf(str(path), A, b, -c, ConeSpec.lp(6), objsense="MAX",
@@ -320,7 +320,7 @@ BCOORD
     emb = cbf_to_conic(parse_cbf(text))
     # 1 var + 1 slack (the L+ row); the F row is gone
     assert emb.A.shape == (1, 2)
-    from abip_tpu.dispatch import solve
+    from abip.dispatch import solve
 
     sol = solve(emb.A, emb.b, emb.c, cones=emb.cones, eps=1e-8)
     # min x s.t. x >= 1 (the F row "x - 5 in R" binds nothing)
@@ -331,7 +331,7 @@ BCOORD
 def test_constraint_free_roundtrip(tmp_path):
     """m = 0 instances (pure cone membership) round-trip through
     write_cbf/read_cbf."""
-    from abip_tpu import ConeSpec
+    from abip import ConeSpec
 
     path = tmp_path / "nocon.cbf"
     c = np.array([1.0, -2.0, 3.0])
@@ -346,7 +346,7 @@ def test_constraint_free_roundtrip(tmp_path):
 def test_signature_matches_embedding():
     """embedding_signature (structure-only) agrees with the assembled
     embedding's (shape, cones)."""
-    from abip_tpu.io.cbf import embedding_signature
+    from abip.io.cbf import embedding_signature
 
     for text in (SOC_MAX, LP_SIGNS, RSOC_MIN):
         p = parse_cbf(text)
@@ -371,8 +371,8 @@ def test_roundtrip_fuzz(tmp_path):
     from benchmarks.cblib_mini import write_cbf_rowform
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.dispatch import solve
+    from abip import ConeSpec
+    from abip.dispatch import solve
 
     rng = np.random.default_rng(17)
     for k in range(8):

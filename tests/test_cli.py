@@ -1,4 +1,4 @@
-"""CLI surface tests (`python -m abip_tpu`).
+"""CLI surface tests (`python -m abip`).
 
 Run in subprocesses: the CLI owns backend selection, and (jaxlib
 constraint) XLA compiles must not run late in this long pytest process.
@@ -16,15 +16,15 @@ REPO = os.path.join(os.path.dirname(__file__), "..")
 
 def run_cli(*args):
     return subprocess.run(
-        [sys.executable, "-m", "abip_tpu", *args, "--cpu"],
+        [sys.executable, "-m", "abip", *args, "--cpu"],
         capture_output=True, text=True, cwd=REPO, timeout=240)
 
 
 def test_cli_mps_json(tmp_path):
     import scipy.sparse as sp
 
-    from abip_tpu.io.mps import GeneralLP
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps import GeneralLP
+    from abip.io.mps_write import write_mps
 
     rng = np.random.default_rng(2)
     A = np.abs(rng.standard_normal((3, 8))) + 0.1

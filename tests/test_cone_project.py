@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abip_tpu.cones import (ConeLayout, ConeSpec, cone_membership_violation,
+from abip.cones import (ConeLayout, ConeSpec, cone_membership_violation,
                             cone_project)
 
 SPECS = [
@@ -70,7 +70,7 @@ def test_best_approximation(spec):
 def test_jacobian_matches_diff_layer():
     """jacfwd(cone_project) equals the hand-derived projection Jacobian
     used by the implicit-differentiation layer, at a generic point."""
-    from abip_tpu.diff import dprojection_dense
+    from abip.diff import dprojection_dense
 
     spec = ConeSpec(soc=(4,), rsoc=(4,), free=1, nonneg=3)
     layout = ConeLayout(spec)
@@ -99,7 +99,7 @@ def test_barrier_prox_limits_to_projection(spec):
     """As lambda -> 0+ the barrier prox converges to the Euclidean
     projection (the interior-regularized map degenerates to its
     projection); ties the solver's prox to the PDHG/diff primitive."""
-    from abip_tpu.cones import cone_barrier_prox
+    from abip.cones import cone_barrier_prox
 
     rng = np.random.default_rng(3)
     layout = ConeLayout(spec)

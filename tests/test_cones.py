@@ -16,7 +16,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from abip_tpu.cones import ConeSpec, ConeLayout, cone_barrier_prox
+from abip.cones import ConeSpec, ConeLayout, cone_barrier_prox
 
 
 def prox(spec, t, lam):
@@ -94,7 +94,7 @@ def test_mixed_cone_layout(rng):
 
 def test_cold_start_strictly_interior():
     spec = ConeSpec(soc=(3, 5), rsoc=(4,), free=2, zero=1, nonneg=6)
-    from abip_tpu.cones import cone_membership_violation
+    from abip.cones import cone_membership_violation
 
     layout = ConeLayout(spec)
     x0 = layout.interior_point(jnp.float64)
@@ -107,7 +107,7 @@ def test_prox_extreme_lambda_fuzz(lam):
     strictly interior for every cone class."""
     rng = np.random.default_rng(99)
     spec = ConeSpec(soc=(2, 5), rsoc=(3, 6), free=3, zero=2, nonneg=6)
-    from abip_tpu.cones import cone_membership_violation
+    from abip.cones import cone_membership_violation
 
     layout = ConeLayout(spec)
     for scale in (1e-6, 1.0, 1e6):

@@ -10,41 +10,37 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from abip_tpu import ConeSpec
-from abip_tpu.cones import ConeLayout
-from abip_tpu.ops.conic_pallas import _pad128, cone_kernel_data
+from abip import ConeSpec
+from abip.cones import ConeLayout
+from abip.ops.conic_sprint import cone_kernel_data
 
 
 def test_cone_prox_delta_scales_with_delta():
     """P(dt) error must be PROPORTIONAL to |dt| (no absolute floor) for
     every cone type -- the property that makes the f32 delta endgame
     f64-grade."""
-    import abip_tpu.cones as C
-    from abip_tpu.ops.conic_delta import _cone_prox_delta
+    import abip.cones as C
+    from abip.ops.conic_delta import _cone_prox_delta
 
     rng = np.random.default_rng(0)
     spec = ConeSpec(soc=(25, 25), rsoc=(10,), nonneg=40)
     layout = ConeLayout(spec)
     n = spec.dim
-    np_pad = _pad128(n)
-    cd = cone_kernel_data(layout, np_pad)
+    cd = cone_kernel_data(layout)
     lam = jnp.float32(1e-5)
-    t0 = np.zeros((1, np_pad), np.float32)
-    t0[0, :n] = rng.standard_normal(n).astype(np.float32)
-    t0 = jnp.asarray(t0)
+    t0 = jnp.asarray(rng.standard_normal((1, n)).astype(np.float32))
     with jax.default_matmul_precision("highest"):
         for scale, bound in ((1e-4, 1e-7), (1e-6, 1e-9), (1e-8, 1e-11)):
-            dt = np.zeros((1, np_pad), np.float32)
-            dt[0, :n] = (scale * rng.standard_normal(n)).astype(np.float32)
-            dt = jnp.asarray(dt)
-            t64 = jnp.asarray(np.asarray(t0)[0, :n], jnp.float64)
-            d64 = jnp.asarray(np.asarray(dt)[0, :n], jnp.float64)
+            dt = jnp.asarray((scale * rng.standard_normal((1, n)))
+                             .astype(np.float32))
+            t64 = jnp.asarray(np.asarray(t0)[0], jnp.float64)
+            d64 = jnp.asarray(np.asarray(dt)[0], jnp.float64)
             p_true = (C.cone_barrier_prox(t64 + d64,
                                           jnp.full((n,), 1e-5), layout)
                       - C.cone_barrier_prox(t64, jnp.full((n,), 1e-5),
                                             layout))
             p_est = _cone_prox_delta(dt, t0, lam, cd)
-            err = np.abs(np.asarray(p_est)[0, :n]
+            err = np.abs(np.asarray(p_est)[0]
                          - np.asarray(p_true)).max()
             assert err < bound, (scale, err)
 
@@ -55,7 +51,7 @@ def test_conic_sprint2_delta_endgame_matches_steps(endgame):
     objectives."""
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     cones = ConeSpec(soc=(5,), nonneg=10)
     As, bs, cs, stars = [], [], [], []
@@ -73,56 +69,3 @@ def test_conic_sprint2_delta_endgame_matches_steps(endgame):
     np.testing.assert_allclose(np.asarray(r_d.admm_iters),
                                np.asarray(r_s.admm_iters), rtol=0.10)
     assert np.abs(np.asarray(r_d.pobj) - np.asarray(stars)).max() < 2e-5
-
-
-def test_conic_delta_kernel_interpret_matches_fallback():
-    from benchmarks.conic_mini import randcone
-
-    from abip_tpu.linsys.schur import DenseSchurSolver
-    from abip_tpu.ops.conic_delta import (_conic_delta_compute,
-                                          _conic_delta_op,
-                                          conic_delta_anchor)
-
-    f64 = jnp.float64
-    spec = ConeSpec(soc=(8,), rsoc=(6,), nonneg=10)
-    layout = ConeLayout(spec)
-    n = spec.dim
-    m = 10
-    rng = np.random.default_rng(5)
-    A = jnp.asarray(rng.standard_normal((m, n)) / np.sqrt(n), f64)
-    x_int = jnp.asarray(layout.interior_point(np.float64))
-    b = A @ x_int
-    c = jnp.asarray(rng.standard_normal(n) * 0.3, f64)
-    rho_y, rho_x, rho_tau = 1e-3, 1.0, 1.0
-    dss = DenseSchurSolver(A, None, jnp.full((m,), rho_y),
-                           jnp.full((n,), rho_x), mode="chol",
-                           form="primal")
-    solve_fn = lambda wy, wx, *a: dss.solve(wy, wx)  # noqa: E731
-    r_y, r_x, _ = dss.solve(-b, c)
-    rho_vec = jnp.concatenate([jnp.full((m,), rho_y),
-                               jnp.full((n,), rho_x)])
-    r_vec = jnp.concatenate([r_y, r_x])
-    a_coef = rho_tau + jnp.dot(rho_vec * r_vec, r_vec)
-    np_pad = _pad128(n)
-    cd = cone_kernel_data(layout, np_pad)
-    A32p = jnp.zeros((_pad128(m), np_pad), jnp.float32).at[
-        :m, :n].set(A.astype(jnp.float32))
-    Sinv = jnp.linalg.inv((A * (1 / rho_y)).T @ A
-                          + rho_x * jnp.eye(n, dtype=f64))
-    Minv32p = jnp.zeros((np_pad, np_pad), jnp.float32).at[:n, :n].set(
-        Sinv.astype(jnp.float32))
-    Hinv32p = jnp.zeros((1, np_pad), jnp.float32)
-    u0 = jnp.concatenate([jnp.zeros((m,), f64), x_int,
-                          jnp.ones((1,), f64)])
-    v0 = u0
-    anc = conic_delta_anchor(A, solve_fn, None, r_y, r_x, b, c, a_coef,
-                             rho_y, rho_x, rho_tau, 1e-4, 1.8, 0.0,
-                             u0, v0, jnp.asarray(np.inf, f64),
-                             layout, cd, A32p, Minv32p, Hinv32p, False)
-    with jax.default_matmul_precision("highest"):
-        ref = _conic_delta_compute(anc, T=32, probe=8, woodbury=False)
-    ker = _conic_delta_op(32, 8, False, True)(*anc[:9], *anc.cd,
-                                              *anc[10:])
-    for a, bb in zip(ref, ker):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(bb),
-                                   rtol=2e-5, atol=1e-6)

@@ -1,8 +1,8 @@
-"""In-kernel barrier-ladder phase 1 (`ops/conic_pallas.fused_dr_ladder`).
+"""Barrier-ladder phase 1 in one loop (`ops/conic_sprint.fused_dr_ladder`).
 
 Correctness bar: the ladder must reproduce the per-stage sprint
 engine's phase-1 trajectories (same `adjust_barrier` tables,
-`source/abip.c:994-1071`, evaluated in-kernel on f32 error-ratio) and
+`source/abip.c:994-1071`, evaluated in-loop on the f32 error-ratio) and
 hand the same states to the delta endgame.
 """
 import jax
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from abip_tpu import ConeSpec
+from abip import ConeSpec
 
 
 def _family(n_inst, seed0):
@@ -28,8 +28,8 @@ def _family(n_inst, seed0):
 def test_adjust_barrier_f32_matches_device_tables():
     """The unrolled where-chain tables must agree with the jnp
     searchsorted implementation across every bucket boundary."""
-    from abip_tpu.conic_ops import adjust_barrier_device
-    from abip_tpu.ops.conic_pallas import _adjust_barrier_f32
+    from abip.conic_ops import adjust_barrier_device
+    from abip.ops.conic_sprint import _adjust_barrier_f32
 
     eps, psi = 1e-6, 1.0
     mus = [1.0, 0.3, 1e-2, 1e-3, 3e-5, 9e-7, 1e-8]
@@ -47,7 +47,7 @@ def test_adjust_barrier_f32_matches_device_tables():
 def test_conic_ladder_phase1_matches_sprint():
     """sprint2 with phase1='ladder' vs phase1='sprint': same statuses,
     near-identical trajectories, oracle objectives."""
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     As, bs, cs, stars, cones = _family(4, 300)
     kw = dict(cones=cones, eps=1e-6, precision="mixed", rho_y=1e-3,
@@ -66,7 +66,7 @@ def test_conic_ladder_certificates():
     """Infeasible (-2) and unbounded (-1) instances survive the ladder
     phase 1 and are certified by the endgame (`has_converged`,
     `source/abip.c:750-777`)."""
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     # lane 0: x >= 0 with x = -1 (primal infeasible);
     # lane 1: min -x1, x1 - x2 = 0 (unbounded)
@@ -85,7 +85,7 @@ def test_conic_ladder_certificates():
 def test_conic_ladder_cold_delta_rejected():
     """engine='delta' from a cold start must raise (the conic delta
     chunk lacks the k=0 tau_t := 1 case, `source/abip.c:186-254`)."""
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     As, bs, cs, _, cones = _family(2, 900)
     with pytest.raises((ValueError, jax.errors.JaxRuntimeError),
@@ -99,7 +99,7 @@ def test_stage_budget_floor_small_crit_period():
     NOT shrink into the normal operating range (8*T=8 mis-stalled every
     fuzz class at ~100 iterations with mu crashed to the floor and a
     spurious status-2 exit)."""
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     As, bs, cs, stars, cones = _family(3, 5_000)
     r = solve_qcp_batch(As, bs, cs, cones=cones, eps=1e-6,
@@ -114,7 +114,7 @@ def test_prepared_setup_matches_in_driver_normalize():
     """prepare_conic_batch + normalize=False must reproduce the
     in-driver normalize=True trajectories exactly (same equilibration,
     factors, and pre_calculate chain -- one code path, two call sites)."""
-    from abip_tpu.parallel.batched_qcp import (_solve_qcp_batch_jit,
+    from abip.parallel.batched_qcp import (_solve_qcp_batch_jit,
                                                prepare_conic_batch)
 
     As, bs, cs, stars, cones = _family(3, 7_100)

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from abip_tpu.cones import ConeSpec
-from abip_tpu.io.sedumi import from_sedumi, to_sedumi, write_sedumi_mat
+from abip.cones import ConeSpec
+from abip.io.sedumi import from_sedumi, to_sedumi, write_sedumi_mat
 
 from benchmarks import conic_mini
 
@@ -37,7 +37,7 @@ def test_to_sedumi_rejects_zero_cone():
 
 
 def test_write_load_solve_with_oracle(tmp_path):
-    from abip_tpu.io.sedumi import solve_sedumi
+    from abip.io.sedumi import solve_sedumi
 
     name, A, b, c, cones, pobj_star = conic_mini.randcone(
         "rt", 15, ConeSpec(soc=(5,), nonneg=12), seed=7)
@@ -65,7 +65,7 @@ def test_complementary_pair_is_valid():
 
 
 def test_nnlsq_oracle_matches_solver():
-    from abip_tpu.qcp import solve_qcp
+    from abip.qcp import solve_qcp
 
     name, A, b, c, cones, pobj_star = conic_mini.nnlsq(10, 18, seed=5)
     sol = solve_qcp(A, b, c, cones, eps=1e-6)
@@ -78,8 +78,8 @@ def test_randqcp_oracle():
     is attained by the solver for diagonal, low-rank, and full Q."""
     from benchmarks.conic_mini import randqcp
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.qcp import solve_qcp
+    from abip import ConeSpec
+    from abip.qcp import solve_qcp
 
     for q_kind, cones in ((None, ConeSpec(soc=(5,), nonneg=10)),
                           ("diag", ConeSpec(nonneg=12)),

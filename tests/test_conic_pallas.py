@@ -1,6 +1,6 @@
-"""Fused conic DR sprint kernel vs the shared conic_ops step math.
+"""Fused conic DR sprint vs the shared conic_ops step math.
 
-The kernel (`ops/conic_pallas.py`) re-implements the projection /
+The sprint (`ops/conic_sprint.py`) re-implements the projection /
 cone-prox / dual-update iteration with matmul-encoded segment ops; these
 tests pin it to the f64 `conic_ops` + `cones` implementations the host
 and device drivers use (reference parity of those is established by
@@ -13,12 +13,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abip_tpu.cones import ConeLayout, ConeSpec, cone_barrier_prox
-from abip_tpu import conic_ops
-from abip_tpu.linsys.schur import DenseSchurSolver
-from abip_tpu.ops.conic_pallas import (ConeKernelData, _cone_prox,
-                                       cone_kernel_data,
-                                       fused_dr_sprint_stop, _pad128)
+from abip.cones import ConeLayout, ConeSpec, cone_barrier_prox
+from abip import conic_ops
+from abip.linsys.schur import DenseSchurSolver
+from abip.ops.conic_sprint import (_cone_prox, cone_kernel_data,
+                                   fused_dr_sprint_stop)
 
 
 @pytest.fixture
@@ -32,18 +31,15 @@ SPEC = ConeSpec(soc=(5, 7), rsoc=(4, 6), nonneg=20, free=3, zero=2)
 def test_cone_prox_matches_segment_impl(rng):
     lay = ConeLayout(SPEC)
     n = lay.n
-    np_ = _pad128(n)
-    cd = cone_kernel_data(lay, np_)
+    cd = cone_kernel_data(lay)
     lam = 0.037
     for seed in range(5):
         r = np.random.default_rng(seed)
         t = r.standard_normal(n) * (1.0 + 2.0 * r.random(n))
         want = np.asarray(cone_barrier_prox(
             jnp.asarray(t), jnp.full((n,), lam), lay))
-        # zero-cone elements are handled by the caller mask in the kernel
-        tx = jnp.zeros((1, np_), jnp.float32).at[0, :n].set(
-            jnp.asarray(t, jnp.float32))
-        got = np.asarray(_cone_prox(tx, jnp.float32(lam), cd))[0, :n]
+        tx = jnp.asarray(t, jnp.float32)[None, :]
+        got = np.asarray(_cone_prox(tx, jnp.float32(lam), cd))[0]
         kind = np.asarray(lay.kind)
         want = np.where(kind == 2, 0.0, want)  # _ZERO
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
@@ -125,9 +121,7 @@ def _steps_f32(A, b, c, Qd, lay, Sinv32, rho_y, rho_x, rho_tau, lam,
 
 
 @pytest.mark.parametrize("with_q", [False, True])
-@pytest.mark.parametrize("use_pallas,interpret", [(False, False),
-                                                  (True, True)])
-def test_dr_sprint_matches_steps(rng, with_q, use_pallas, interpret):
+def test_dr_sprint_matches_steps(rng, with_q):
     lay, A, b, c, Qd = _setup_problem(rng, with_q=with_q)
     m, n = A.shape
     # rho_y = 1 for the identical-math check: z_y = (w_y - A z_x)/rho_y
@@ -151,7 +145,7 @@ def test_dr_sprint_matches_steps(rng, with_q, use_pallas, interpret):
     u_ref, v_ref, r_vec, a_coef = _steps_f32(
         A, b, c, Qd, lay, Sinv32, rho_y, rho_x, rho_tau, lam, alpha, T,
         u0, v0)
-    cd = cone_kernel_data(lay, _pad128(n))
+    cd = cone_kernel_data(lay)
     Qd32 = (Qd if Qd is not None else jnp.zeros((n,)))
     u_k, v_k, t_done, err = fused_dr_sprint_stop(
         A.astype(jnp.float32), Sinv32,
@@ -160,8 +154,7 @@ def test_dr_sprint_matches_steps(rng, with_q, use_pallas, interpret):
         Qd32.astype(jnp.float32), cd, rho_y, rho_x, rho_tau,
         a_coef, lam, alpha, 0.0,  # thresh 0: never stop early
         u0.astype(jnp.float32), v0.astype(jnp.float32),
-        jnp.float32(0.0), T=T, probe=4,
-        use_pallas=use_pallas, interpret=interpret)
+        jnp.float32(0.0), T=T, probe=4)
     assert int(t_done) == T
     # identical-math check vs the f32 conic_ops trajectory
     np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref),
@@ -190,12 +183,12 @@ def test_dr_sprint_woodbury_matches_primal(rng):
     H_inv = jnp.full((n,), 1.0 / rho_x)
     G = rho_y * jnp.eye(m) + (A * H_inv[None, :]) @ A.T
     Ginv = jnp.linalg.inv(G)
-    cd = cone_kernel_data(lay, _pad128(n))
+    cd = cone_kernel_data(lay)
     z32 = jnp.zeros((n,), jnp.float32)
     common = dict(cd=cd, rho_y=rho_y, rho_x=rho_x, rho_tau=rho_tau,
                   a_coef=a_coef, lam=lam, alpha=alpha, thresh=0.0,
                   u32=u0.astype(jnp.float32), v32=v0.astype(jnp.float32),
-                  k0=jnp.float32(0.0), T=T, probe=4, use_pallas=False)
+                  k0=jnp.float32(0.0), T=T, probe=4)
     up, vp, _, _ = fused_dr_sprint_stop(
         A.astype(jnp.float32), Sinv.astype(jnp.float32), z32,
         r_vec.astype(jnp.float32), b.astype(jnp.float32),
@@ -221,7 +214,7 @@ def test_dr_sprint_stop_fires(rng):
     _, _, r_vec, a_coef, _ = _steps_reference(
         A, b, c, None, lay, 1e-3, 1.0, 1.0, 0.05, 1.8, 1, u0, u0)
     Sinv = jnp.linalg.inv(1.0 * jnp.eye(n) + (A * 1e3).T @ A)
-    cd = cone_kernel_data(lay, _pad128(n))
+    cd = cone_kernel_data(lay)
     z32 = jnp.zeros((n,), jnp.float32)
     u_k, v_k, t_done, err = fused_dr_sprint_stop(
         A.astype(jnp.float32), Sinv.astype(jnp.float32), z32,
@@ -229,7 +222,7 @@ def test_dr_sprint_stop_fires(rng):
         c.astype(jnp.float32), z32, cd, 1e-3, 1.0, 1.0, a_coef,
         0.05, 1.8, 1e9,  # absurd threshold: stop at first probe
         u0.astype(jnp.float32), u0.astype(jnp.float32),
-        jnp.float32(0.0), T=64, probe=4, use_pallas=False)
+        jnp.float32(0.0), T=64, probe=4)
     assert int(t_done) == 4
     assert np.isfinite(float(err))
 
@@ -247,7 +240,7 @@ def test_dr_sprint_vmap_consistency(rng):
     _, _, r_vec, a_coef, _ = _steps_reference(
         A, b, c, None, lay, 1.0, 1.0, 1.0, 0.05, 1.8, 1, u0, u0)
     Sinv = jnp.linalg.inv(1.0 * jnp.eye(n) + A.T @ A)
-    cd = cone_kernel_data(lay, _pad128(n))
+    cd = cone_kernel_data(lay)
     z32 = jnp.zeros((n,), jnp.float32)
     B = 3
     r2 = np.random.default_rng(9)
@@ -261,8 +254,7 @@ def test_dr_sprint_vmap_consistency(rng):
             A.astype(jnp.float32), Sinv.astype(jnp.float32), z32,
             r_vec.astype(jnp.float32), b.astype(jnp.float32),
             c.astype(jnp.float32), z32, cd, 1.0, 1.0, 1.0, a_coef,
-            0.05, 1.8, 0.0, u, u, jnp.float32(0.0), T=8, probe=4,
-            use_pallas=False)
+            0.05, 1.8, 0.0, u, u, jnp.float32(0.0), T=8, probe=4)
 
     uv = jax.vmap(one)(us)
     for i in range(B):
@@ -278,7 +270,7 @@ def test_conic_sprint2_solves_batch():
     reaches the randcone analytic optima at 1e-6 with iteration counts
     near the steps engine's (probe-quantized stage exits cost ~25%)."""
     from benchmarks.conic_mini import randcone
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     cones = ConeSpec(soc=(25, 25), rsoc=(4,), nonneg=150)
     m = cones.dim // 3

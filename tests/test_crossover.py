@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-import abip_tpu
-from abip_tpu.crossover import crossover
+import abip
+from abip.crossover import crossover
 
 
 def random_lp(seed, m=25, n=80):
@@ -19,7 +19,7 @@ def random_lp(seed, m=25, n=80):
 @pytest.mark.parametrize("seed", [0, 3, 5])
 def test_crossover_certifies_vertex(seed):
     A, b, c = random_lp(seed)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6)
+    sol = abip.solve_lp(A, b, c, eps=1e-6)
     cr = crossover(A, b, c, sol.x)
     ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
     assert cr.optimal
@@ -33,7 +33,7 @@ def test_crossover_certifies_vertex(seed):
 def test_crossover_from_pdhg():
     """Works from any eps-accurate interior point, not just ABIP's."""
     A, b, c = random_lp(7, 30, 90)
-    sol = abip_tpu.solve_lp_pdhg(A, b, c, eps=1e-6)
+    sol = abip.solve_lp_pdhg(A, b, c, eps=1e-6)
     cr = crossover(A, b, c, sol.x)
     ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
     assert cr.optimal
@@ -44,8 +44,8 @@ def test_crossover_suite_flag(tmp_path):
     """run_suite --mps --crossover records the certificate fields."""
     import scipy.sparse as sp
 
-    from abip_tpu.io.mps import GeneralLP
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps import GeneralLP
+    from abip.io.mps_write import write_mps
     from benchmarks.run_suite import run_mps
 
     A, b, c = random_lp(11, 10, 30)
@@ -62,8 +62,8 @@ def test_run_mps_threads(tmp_path):
     correctness (host_pool under the suite runner)."""
     import scipy.sparse as sp
 
-    from abip_tpu.io.mps import GeneralLP
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps import GeneralLP
+    from abip.io.mps_write import write_mps
     from benchmarks.run_suite import run_mps
 
     paths, refs = [], []

@@ -1,4 +1,4 @@
-"""Differentiable solution maps (`abip_tpu/diff.py`).
+"""Differentiable solution maps (`abip/diff.py`).
 
 Golden oracles: the envelope theorem (analytic dual = gradient), central
 finite differences of the full solve, and a closed-form equality-QP
@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from abip_tpu.cones import ConeSpec
-from abip_tpu.diff import (solve_lasso_grad, solve_lp_grad, solve_qcp_grad,
+from abip.cones import ConeSpec
+from abip.diff import (solve_lasso_grad, solve_lp_grad, solve_qcp_grad,
                            solve_svm_grad)
 
 KW = dict(eps=1e-9, max_ipm=200, max_admm=200_000)

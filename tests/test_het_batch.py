@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from abip_tpu.cones import ConeLayout, ConeSpec, PaddedConeLayout
-from abip_tpu.parallel.batched_qcp import (pad_conic_instances,
+from abip.cones import ConeLayout, ConeSpec, PaddedConeLayout
+from abip.parallel.batched_qcp import (pad_conic_instances,
                                            solve_qcp_het_batch)
 
 
@@ -40,7 +40,7 @@ def test_pad_conic_instances_shapes():
         lay = ConeLayout(spec)
         np.testing.assert_array_equal(np.asarray(layout.kind)[k, : lay.n],
                                       lay.kind)
-        from abip_tpu.cones import _ZERO
+        from abip.cones import _ZERO
         assert (np.asarray(layout.kind)[k, lay.n:] == _ZERO).all()
 
 
@@ -48,7 +48,7 @@ def test_padded_layout_prox_matches_natural():
     """cone_barrier_prox through a padded layout == natural layout on
     the prefix, exact zeros on the padding (the inertness the embedding
     relies on)."""
-    from abip_tpu.cones import cone_barrier_prox
+    from abip.cones import cone_barrier_prox
 
     rng = np.random.default_rng(5)
     spec = ConeSpec(soc=(6, 4), rsoc=(5,), free=2, nonneg=7)
@@ -84,7 +84,7 @@ def test_padded_layout_interior_point_and_tie():
 def test_het_batch_matches_device_route(normalize):
     """Per-lane parity of the ONE-program mixed-cone batch vs the
     single-instance device solver at each lane's natural shape."""
-    from abip_tpu.parallel.batched_qcp import solve_qcp_device
+    from abip.parallel.batched_qcp import solve_qcp_device
 
     probs = _mini_problems(6)   # 6 distinct cone structures / shapes
     res = solve_qcp_het_batch(probs, eps=1e-5, normalize=normalize,

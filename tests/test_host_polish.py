@@ -1,9 +1,9 @@
-"""Host f64 polish of an accelerator-floored batched conic solve.
+"""f64 polish of an f32-floored batched conic solve.
 
-On TPU the anchored-f32 engines floor the primal residual at roughly
+The anchored-f32 engines floor the primal residual at roughly
 sqrt(q)*eps32 for wide embeddings; `parallel.batched_qcp.host_polish`
-finishes the last barrier stage on the host CPU backend from the
-accelerator's (x, y, s, mu) state.  Here the "accelerator" side is the
+finishes the last barrier stage in the f64 host-loop driver from the
+batch lane's (x, y, s, mu) state.  Here the batch side is the
 same batched driver stopped early by k_cap: the polish must take the
 partial state to a fully certified Solved and the same optimum as an
 uninterrupted solve.
@@ -11,9 +11,9 @@ uninterrupted solve.
 import numpy as np
 import pytest
 
-from abip_tpu import ConeSpec
-from abip_tpu.parallel.batched_qcp import host_polish, solve_qcp_batch
-from abip_tpu.qcp import solve_qcp
+from abip import ConeSpec
+from abip.parallel.batched_qcp import host_polish, solve_qcp_batch
+from abip.qcp import solve_qcp
 
 
 def _tiny_lasso_embed(m=6, n=10, seed=3):

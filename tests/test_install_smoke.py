@@ -10,8 +10,8 @@ takes.
 import numpy as np
 import pytest
 
-import abip_tpu
-from abip_tpu import ConeSpec
+import abip
+from abip import ConeSpec
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -28,7 +28,7 @@ def test_install_lp_shape():
     A = np.concatenate([Ar, np.eye(m)], axis=1)
     b = rng.random(m)
     c = rng.random(m + n)
-    sol = abip_tpu.solve(A, b, c, eps=1e-6)
+    sol = abip.solve(A, b, c, eps=1e-6)
     assert sol.status_name == "Solved"
     from scipy.optimize import linprog
 
@@ -46,7 +46,7 @@ def test_install_qcp_toy():
     c = np.array([1.0, 0, 2, 1, 4, 2, 3, 0])
     Q = np.eye(8)
     cones = ConeSpec(soc=(3,), rsoc=(3,), free=1, nonneg=1)
-    sol = abip_tpu.solve(A, b, c, cones=cones, Q=Q, eps=1e-7)
+    sol = abip.solve(A, b, c, cones=cones, Q=Q, eps=1e-7)
     assert sol.status_name == "Solved"
 
     # oracle: SLSQP on the smooth reformulation of the cone constraints
@@ -89,7 +89,7 @@ def test_install_qcp_toy():
     assert refined.fun >= sol.pobj - 1e-5 * (1 + abs(sol.pobj))
 
     # primal feasibility + cone membership of our solution
-    from abip_tpu.cones import ConeLayout, cone_membership_violation
+    from abip.cones import ConeLayout, cone_membership_violation
     import jax.numpy as jnp
 
     assert np.linalg.norm(A @ sol.x - b) < 1e-5
@@ -110,17 +110,17 @@ def test_nonfinite_data_rejected():
     An = A.copy()
     An[1, 2] = np.nan
     with pytest.raises(ValueError, match="A contains"):
-        abip_tpu.solve_lp(An, b, c)
+        abip.solve_lp(An, b, c)
     with pytest.raises(ValueError, match="A contains"):
-        abip_tpu.solve_lp(sp.csr_matrix(An), b, c)
+        abip.solve_lp(sp.csr_matrix(An), b, c)
     with pytest.raises(ValueError, match="b contains"):
-        abip_tpu.solve_lp(A, np.r_[b[:-1], np.inf], c)
+        abip.solve_lp(A, np.r_[b[:-1], np.inf], c)
     with pytest.raises(ValueError, match="A contains"):
-        abip_tpu.solve_qcp(An, b, c, ConeSpec.lp(10))
+        abip.solve_qcp(An, b, c, ConeSpec.lp(10))
     with pytest.raises(ValueError, match="Q contains"):
         Q = np.eye(10)
         Q[0, 0] = np.nan
-        abip_tpu.solve_qcp(A, b, c, ConeSpec.lp(10), Q=Q)
+        abip.solve_qcp(A, b, c, ConeSpec.lp(10), Q=Q)
 
 
 def test_edge_shapes_and_scaling():
@@ -133,7 +133,7 @@ def test_edge_shapes_and_scaling():
     A = rng.standard_normal((30, 10))
     b = A @ (rng.random(10) + 0.5)
     c = rng.random(10)
-    s = abip_tpu.solve_lp(A, b, c, eps=1e-6)
+    s = abip.solve_lp(A, b, c, eps=1e-6)
     ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
     assert s.status_name == "Solved"
     assert abs(s.pobj - ref.fun) / (1 + abs(ref.fun)) < 1e-4
@@ -142,15 +142,15 @@ def test_edge_shapes_and_scaling():
     A2[:, :5] += np.eye(5) * 1e-6
     b2 = A2 @ (rng.random(40) + 0.5)
     c2 = rng.random(40) * 1e6
-    s = abip_tpu.solve_lp(A2, b2, c2, eps=1e-6)
+    s = abip.solve_lp(A2, b2, c2, eps=1e-6)
     ref = linprog(c2, A_eq=A2, b_eq=b2, bounds=(0, None), method="highs")
     assert s.status_name == "Solved"
     assert abs(s.pobj - ref.fun) / (1 + abs(ref.fun)) < 1e-4
 
     A3 = rng.standard_normal((4, 12))
-    s = abip_tpu.solve_lp(A3, np.zeros(4), rng.random(12) + 0.1, eps=1e-6)
+    s = abip.solve_lp(A3, np.zeros(4), rng.random(12) + 0.1, eps=1e-6)
     assert s.status_name == "Solved" and abs(s.pobj) < 1e-6
 
-    s = abip_tpu.solve_lp(np.array([[2.0]]), np.array([4.0]),
+    s = abip.solve_lp(np.array([[2.0]]), np.array([4.0]),
                           np.array([3.0]), eps=1e-8)
     assert abs(s.pobj - 6.0) < 1e-5

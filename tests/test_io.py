@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from abip_tpu.io import read_mps, presolve_to_standard
-from abip_tpu.io.presolve import solve_mps
+from abip.io import read_mps, presolve_to_standard
+from abip.io.presolve import solve_mps
 
 SAMPLE_MPS = textwrap.dedent("""\
     * a small general-form LP exercising E/L/G rows, RANGES and BOUNDS
@@ -165,10 +165,10 @@ def test_pad_standard_preserves_solution(tmp_path):
     import scipy.sparse as sp
     from scipy.optimize import linprog
 
-    from abip_tpu.io.mps import GeneralLP
-    from abip_tpu.io.presolve import (pad_standard, presolve_to_standard,
+    from abip.io.mps import GeneralLP
+    from abip.io.presolve import (pad_standard, presolve_to_standard,
                                       solve_mps)
-    from abip_tpu.io.mps_write import write_mps
+    from abip.io.mps_write import write_mps
 
     rng = np.random.default_rng(2)
     m, n = 11, 30
@@ -196,7 +196,7 @@ def test_save_presolved_mps_preserves_user_objective(tmp_path):
     """The saved standard-form file must report the same user objective as
     the original: OBJSENSE and the presolve shift/objective constant are
     folded into the written file's cost/objcon (review round 2)."""
-    from abip_tpu.io.presolve import save_presolved_mps
+    from abip.io.presolve import save_presolved_mps
 
     mps = SAMPLE_MPS.replace("NAME          SAMPLE",
                              "NAME          SAMPLE\nOBJSENSE\n    MAX")

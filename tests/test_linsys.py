@@ -9,7 +9,7 @@ crossover.  Reference analogue: the per-shape KKT dispatch of
 import numpy as np
 import pytest
 
-from abip_tpu.linsys.schur import DenseSchurSolver
+from abip.linsys.schur import DenseSchurSolver
 
 
 def _mk(m, n, q_diag=False, seed=0):

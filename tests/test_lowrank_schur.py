@@ -4,13 +4,13 @@ custom-KKT role)."""
 import jax.numpy as jnp
 import numpy as np
 
-from abip_tpu.problem import LinearOperator
+from abip.problem import LinearOperator
 
 
 def test_lowrank_woodbury_matches_dense_solve():
     """G^-1 via SMW must match the dense Woodbury solve to f64 roundoff
     on a random exact diag+low-rank decomposition."""
-    from abip_tpu.linsys.schur import DenseSchurSolver, LowRankWoodburySolver
+    from abip.linsys.schur import DenseSchurSolver, LowRankWoodburySolver
 
     rng = np.random.default_rng(11)
     m, k = 40, 5
@@ -49,7 +49,7 @@ def test_svm_operator_factories_match_cg():
     dense-embedding oracle objective."""
     from benchmarks.generate import svm_instance
 
-    from abip_tpu.problems import solve_svm
+    from abip.problems import solve_svm
 
     X, y = svm_instance(m=120, n=12, seed=9)
     for form in ("qp", "socp"):

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-import abip_tpu
+import abip
 from tests.conftest import random_lp
 
 
@@ -22,7 +22,7 @@ def scipy_opt(A, b, c):
 def test_random_lp_matches_scipy(rng, m, n):
     A, b, c = random_lp(rng, m, n)
     ref = scipy_opt(A, b, c)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6, verbose=False)
+    sol = abip.solve_lp(A, b, c, eps=1e-6, verbose=False)
     assert sol.status_name in ("Solved", "Solved/Inaccurate"), sol.status_name
     assert sol.pobj == pytest.approx(ref, abs=1e-4 * (1 + abs(ref)))
     # primal feasibility in original units
@@ -33,7 +33,7 @@ def test_random_lp_matches_scipy(rng, m, n):
 def test_lp_no_normalize(rng):
     A, b, c = random_lp(rng, 15, 45)
     ref = scipy_opt(A, b, c)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6, normalize=False)
+    sol = abip.solve_lp(A, b, c, eps=1e-6, normalize=False)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     assert sol.pobj == pytest.approx(ref, abs=1e-4 * (1 + abs(ref)))
 
@@ -41,14 +41,14 @@ def test_lp_no_normalize(rng):
 def test_lp_cg_backend(rng):
     A, b, c = random_lp(rng, 15, 45)
     ref = scipy_opt(A, b, c)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6, linsys="cg")
+    sol = abip.solve_lp(A, b, c, eps=1e-6, linsys="cg")
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     assert sol.pobj == pytest.approx(ref, abs=1e-4 * (1 + abs(ref)))
 
 
 def test_duality_gap(rng):
     A, b, c = random_lp(rng, 12, 40)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6)
+    sol = abip.solve_lp(A, b, c, eps=1e-6)
     # complementary slackness: x,s >= 0 and x's ~ 0
     assert abs(sol.pobj - sol.dobj) < 1e-4 * (1 + abs(sol.pobj))
     assert np.dot(np.abs(sol.x), np.abs(sol.s)) < 1e-2
@@ -59,7 +59,7 @@ def test_infeasible_lp(rng):
     A = np.array([[1.0, 1.0], [1.0, 1.0]])
     b = np.array([1.0, 3.0])
     c = np.array([1.0, 1.0])
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6)
+    sol = abip.solve_lp(A, b, c, eps=1e-6)
     assert "Infeasible" in sol.status_name
 
 
@@ -68,7 +68,7 @@ def test_unbounded_lp():
     A = np.array([[1.0, -1.0]])
     b = np.array([0.0])
     c = np.array([-1.0, 0.0])
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6)
+    sol = abip.solve_lp(A, b, c, eps=1e-6)
     assert "Unbounded" in sol.status_name
 
 
@@ -82,9 +82,9 @@ def test_sparse_lp_matches_dense(rng):
     c = Ad.T @ rng.standard_normal(m) + rng.random(n) + 0.5
     ref = scipy_opt(Ad, b, c)
     A = sp.csr_matrix(Ad)
-    s_direct = abip_tpu.solve_lp(A, b, c, eps=1e-5)
-    s_cg = abip_tpu.solve_lp(A, b, c, eps=1e-5, linsys="cg")
-    s_dense = abip_tpu.solve_lp(Ad, b, c, eps=1e-5)
+    s_direct = abip.solve_lp(A, b, c, eps=1e-5)
+    s_cg = abip.solve_lp(A, b, c, eps=1e-5, linsys="cg")
+    s_dense = abip.solve_lp(Ad, b, c, eps=1e-5)
     for s in (s_direct, s_cg, s_dense):
         assert s.status_name.startswith("Solved")
         assert s.pobj == pytest.approx(ref, abs=1e-3 * (1 + abs(ref)))
@@ -102,10 +102,10 @@ def test_sigint_returns_best_effort(rng):
     # run starts iterating immediately instead of JIT-compiling when the
     # signal lands (ADVICE round 1).
     A, b, c = random_lp(rng, 40, 300)
-    abip_tpu.solve_lp(A, b, c, eps=1e-18, max_ipm_iters=2)
+    abip.solve_lp(A, b, c, eps=1e-18, max_ipm_iters=2)
     threading.Timer(1.5, lambda: os.kill(os.getpid(), signal.SIGINT)).start()
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-18, max_ipm_iters=100000)
-    assert sol.status == abip_tpu.Status.SIGINT
+    sol = abip.solve_lp(A, b, c, eps=1e-18, max_ipm_iters=100000)
+    assert sol.status == abip.Status.SIGINT
     assert sol.status_name == "Interrupted"
     assert np.isfinite(sol.x).all()
     assert np.isfinite(sol.pobj)
@@ -116,7 +116,7 @@ def test_hilbert_ill_conditioned():
 
     A, b, c = hilbert_lp(n=60, shift=0.5, seed=1)
     ref = scipy_opt(A, b, c)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6)
+    sol = abip.solve_lp(A, b, c, eps=1e-6)
     assert sol.status_name.startswith("Solved")
     assert sol.pobj == pytest.approx(ref, abs=1e-3 * (1 + abs(ref)))
 
@@ -129,7 +129,7 @@ def test_hilbert_ill_conditioned():
 def test_settings_variants_solve(rng, kw):
     A, b, c = random_lp(rng, 12, 36)
     ref = scipy_opt(A, b, c)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-5, **kw)
+    sol = abip.solve_lp(A, b, c, eps=1e-5, **kw)
     assert sol.status_name.startswith("Solved")
     assert sol.pobj == pytest.approx(ref, abs=1e-2 * (1 + abs(ref)))
 
@@ -138,7 +138,7 @@ def test_tight_tolerance_1e8(rng):
     # the reference benchmarks at eps in {1e-4, 1e-6, 1e-8}
     A, b, c = random_lp(rng, 15, 45)
     ref = scipy_opt(A, b, c)
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-8)
+    sol = abip.solve_lp(A, b, c, eps=1e-8)
     assert sol.status_name == "Solved"
     assert sol.res_pri < 1e-8 and sol.rel_gap < 1e-8
     assert sol.pobj == pytest.approx(ref, abs=1e-6 * (1 + abs(ref)))
@@ -158,12 +158,12 @@ def test_pagerank_scattered_sparse(rng):
     b = 0.15 / n * np.ones(n)
     c = np.ones(n)
 
-    from abip_tpu.problem import LinearOperator
+    from abip.problem import LinearOperator
 
     op = LinearOperator.from_scipy_sparse(A)
     assert hasattr(op, "ell"), "auto layout should pick ELL for scattered A"
 
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6, linsys="cg", adaptive=False)
+    sol = abip.solve_lp(A, b, c, eps=1e-6, linsys="cg", adaptive=False)
     assert sol.status_name.startswith("Solved")
     v = np.ones(n) / n
     for _ in range(200):
@@ -183,7 +183,7 @@ def test_pagerank_generator_oracle():
     x_star = spla.spsolve(A.tocsc(), b)
     assert x_star.min() >= 0 and c @ x_star == pytest.approx(1.0, abs=1e-10)
 
-    sol = abip_tpu.solve_lp(A, b, c, eps=1e-6, linsys="cg", adaptive=False)
+    sol = abip.solve_lp(A, b, c, eps=1e-6, linsys="cg", adaptive=False)
     assert sol.status_name.startswith("Solved")
     assert sol.pobj == pytest.approx(1.0, abs=1e-5)
     assert np.abs(sol.x - x_star).max() < 1e-6
@@ -194,7 +194,7 @@ def test_solve_general_two_sided_and_boxed():
     variables, maximize + objective constant, vs scipy."""
     from scipy.optimize import linprog
 
-    from abip_tpu.dispatch import solve_general
+    from abip.dispatch import solve_general
 
     rng = np.random.default_rng(0)
     m, n = 12, 20

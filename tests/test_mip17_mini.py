@@ -10,8 +10,8 @@ from benchmarks.mip17_mini import MANIFEST
 @pytest.mark.parametrize("name", ["pack01", "assign01", "facloc01",
                                   "cstock01"])
 def test_mip17_instance_solves(name, tmp_path):
-    from abip_tpu.io.mps_write import write_mps
-    from abip_tpu.io.presolve import solve_mps
+    from abip.io.mps_write import write_mps
+    from abip.io.presolve import solve_mps
 
     p = MANIFEST[name]()
     path = tmp_path / f"{name}.mps"

@@ -8,8 +8,8 @@ from benchmarks.mittelmann_mini import MANIFEST
 
 @pytest.mark.parametrize("name", ["stair01", "grid01"])
 def test_mittelmann_instance_solves(name, tmp_path):
-    from abip_tpu.io.mps_write import write_mps
-    from abip_tpu.io.presolve import solve_mps
+    from abip.io.mps_write import write_mps
+    from abip.io.presolve import solve_mps
 
     p = MANIFEST[name]()
     path = tmp_path / f"{name}.mps.gz"      # exercises the gz writer too

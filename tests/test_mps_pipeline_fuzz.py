@@ -14,9 +14,9 @@ parsers, the presolve bookkeeping, and the solver.
 import numpy as np
 import pytest
 
-from abip_tpu.io.mps import read_mps
-from abip_tpu.io.mps_write import write_mps
-from abip_tpu.io.presolve import presolve_to_standard
+from abip.io.mps import read_mps
+from abip.io.mps_write import write_mps
+from abip.io.presolve import presolve_to_standard
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -31,7 +31,7 @@ def random_general_lp(seed, m=12, n=18):
     (rows/bounds are placed around a strictly interior point x0)."""
     import scipy.sparse as sp
 
-    from abip_tpu.io.mps import GeneralLP
+    from abip.io.mps import GeneralLP
 
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((m, n)) * (rng.random((m, n)) < 0.6)
@@ -86,8 +86,8 @@ def scipy_general(p):
 
 @pytest.mark.parametrize("seed", range(10))
 def test_pipeline_roundtrip(seed, tmp_path):
-    import abip_tpu
-    from abip_tpu.io.native import native_available
+    import abip
+    from abip.io.native import native_available
 
     p = random_general_lp(seed)
     star = scipy_general(p)
@@ -103,7 +103,7 @@ def test_pipeline_roundtrip(seed, tmp_path):
     for parse in parsers:
         q = parse()
         std = presolve_to_standard(q)
-        sol = abip_tpu.solve_lp(std.A.toarray(), std.b, std.c, eps=1e-7)
+        sol = abip.solve_lp(std.A.toarray(), std.b, std.c, eps=1e-7)
         assert sol.status_name == "Solved", (seed, sol.status_name)
         objs.append(std.user_objective(sol.pobj))
     for obj in objs:

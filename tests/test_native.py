@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from abip_tpu.io import read_mps
-from abip_tpu.io.native import native_available, read_mps_native
+from abip.io import read_mps
+from abip.io.native import native_available, read_mps_native
 from tests.test_io import SAMPLE_MPS
 
 
@@ -88,8 +88,8 @@ def test_native_cbf_matches_python():
     import glob
     import os
 
-    from abip_tpu.io.cbf import parse_cbf
-    from abip_tpu.io.native import parse_cbf_native
+    from abip.io.cbf import parse_cbf
+    from abip.io.native import parse_cbf_native
 
     suite = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                          "suites", "cblib_mini")
@@ -113,7 +113,7 @@ def test_native_cbf_matches_python():
 def test_native_cbf_errors():
     import tempfile
 
-    from abip_tpu.io.native import parse_cbf_native
+    from abip.io.native import parse_cbf_native
 
     with tempfile.NamedTemporaryFile("w", suffix=".cbf",
                                      delete=False) as f:
@@ -135,8 +135,8 @@ def test_native_cbf_strictness_parity():
     (the native side previously accepted atoll/atof garbage)."""
     import tempfile
 
-    from abip_tpu.io.cbf import parse_cbf
-    from abip_tpu.io.native import parse_cbf_native
+    from abip.io.cbf import parse_cbf
+    from abip.io.native import parse_cbf_native
 
     bad = [
         "VER\n2x\nVAR\n1 1\nL+ 1\n",                       # junk version

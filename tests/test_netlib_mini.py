@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from abip_tpu.io.mps import read_mps
-from abip_tpu.io.mps_write import write_mps
-from abip_tpu.io.presolve import solve_mps
+from abip.io.mps import read_mps
+from abip.io.mps_write import write_mps
+from abip.io.presolve import solve_mps
 from benchmarks.netlib_mini import MANIFEST
 
 from tests.test_io import scipy_solve
@@ -37,7 +37,7 @@ def test_roundtrip(name, tmp_path):
 
 
 def test_roundtrip_native(tmp_path):
-    from abip_tpu.io.native import native_available, read_mps_native
+    from abip.io.native import native_available, read_mps_native
 
     if not native_available():
         pytest.skip("native parser not built")

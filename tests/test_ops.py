@@ -1,12 +1,12 @@
-"""Pallas kernel tests (interpret mode on CPU; compiled path on TPU)."""
+"""Operator tests: sparse layouts, the f32 sprint engines, and the
+roofline table."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from abip_tpu.ops import BCSRMatrix, bcsr_matvec, fused_barrier_step
-from abip_tpu.ops.prox_pallas import _ref_impl
+from abip.ops import BCSRMatrix, bcsr_matvec
 
 
 @pytest.mark.parametrize("m,n,density", [(20, 50, 0.2), (100, 300, 0.05),
@@ -18,11 +18,8 @@ def test_bcsr_matvec_matches_dense(rng, m, n, density):
     B = BCSRMatrix.from_scipy(A, dtype=jnp.float32)
     y_ref = A @ x
 
-    y_xla = np.asarray(bcsr_matvec(B, jnp.asarray(x), use_pallas=False))
+    y_xla = np.asarray(bcsr_matvec(B, jnp.asarray(x)))
     np.testing.assert_allclose(y_xla, y_ref, rtol=1e-5, atol=1e-5)
-
-    y_pl = np.asarray(bcsr_matvec(B, jnp.asarray(x), interpret=True))
-    np.testing.assert_allclose(y_pl, y_ref, rtol=1e-5, atol=1e-5)
 
 
 def test_bcsr_packing_stats(rng):
@@ -33,41 +30,10 @@ def test_bcsr_packing_stats(rng):
     assert B.data.shape[2:] == (8, 128)
 
 
-def test_fused_barrier_step_matches_ref(rng):
-    n = 256
-    u_t = jnp.asarray(rng.standard_normal(n))
-    u_prev = jnp.asarray(rng.standard_normal(n))
-    v = jnp.asarray(rng.standard_normal(n))
-    lam, alpha = 0.01, 1.8
-    u_ref, v_ref = _ref_impl(u_t, u_prev, v, lam, alpha)
-    u_pl, v_pl = fused_barrier_step(u_t, u_prev, v, lam, alpha, interpret=True)
-    np.testing.assert_allclose(np.asarray(u_pl), np.asarray(u_ref), rtol=1e-12)
-    np.testing.assert_allclose(np.asarray(v_pl), np.asarray(v_ref), rtol=1e-12)
-    # positivity of the prox output
-    assert (np.asarray(u_pl) > 0).all()
-
-
-def test_fused_barrier_step_agrees_with_hsd(rng):
-    """The kernel's math must equal hsd.admm_update on the tail block."""
-    from abip_tpu import hsd
-
-    m, n = 5, 20
-    l = m + n + 1
-    u = jnp.asarray(rng.standard_normal(l))
-    v = jnp.asarray(rng.standard_normal(l))
-    u_t = jnp.asarray(rng.standard_normal(l))
-    lam, alpha = 0.1, 1.8
-    u_new, v_new = hsd.admm_update(u, v, u, u_t, lam, alpha, m)
-    u_k, v_k = fused_barrier_step(u_t[m:], u[m:], v[m:], lam, alpha,
-                                  use_pallas=False)
-    np.testing.assert_allclose(np.asarray(u_new[m:]), np.asarray(u_k), rtol=1e-12)
-    np.testing.assert_allclose(np.asarray(v_new[m:]), np.asarray(v_k), rtol=1e-12)
-
-
 def test_fused_admm_sprint_matches_hsd(rng):
     """The in-kernel sprint must reproduce T steps of hsd math (in f32)."""
-    from abip_tpu import hsd
-    from abip_tpu.ops.admm_pallas import fused_admm_sprint
+    from abip import hsd
+    from abip.ops.admm_sprint import fused_admm_sprint
 
     m, n = 8, 24
     l = m + n + 1
@@ -99,19 +65,18 @@ def test_fused_admm_sprint_matches_hsd(rng):
                                      g_th, rho_y, solve_fn, 0, m, n)
         u_ref, v_ref = hsd.admm_update(u_ref, v_ref, u_ref, u_t, lam, alpha, m)
 
-    for kwargs in (dict(use_pallas=False), dict(interpret=True)):
-        u_k, v_k = fused_admm_sprint(A, Ninv, h, g, rho_y, g_th, lam, alpha,
-                                     u0, u0, T=T, **kwargs)
-        np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_ref),
-                                   rtol=2e-5, atol=2e-5)
+    u_k, v_k = fused_admm_sprint(A, Ninv, h, g, rho_y, g_th, lam, alpha,
+                                 u0, u0, T=T)
+    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_ref),
+                               rtol=2e-5, atol=2e-5)
 
 
 def test_ell_matvec_matches_dense(rng):
     import scipy.sparse as sp
 
-    from abip_tpu.ops.ell import ELLMatrix, ell_matvec
+    from abip.ops.ell import ELLMatrix, ell_matvec
 
     A = sp.random(50, 120, density=0.05, random_state=np.random.RandomState(0),
                   format="csr")
@@ -126,7 +91,7 @@ def test_sprint_engine_solves_batch(rng):
     steps for the endgame) reaches the same optima as engine='steps'."""
     import jax.numpy as jnp
 
-    from abip_tpu.parallel.batched import solve_lp_batch
+    from abip.parallel.batched import solve_lp_batch
     from tests.conftest import random_lp
     from scipy.optimize import linprog
 
@@ -149,83 +114,36 @@ def test_sprint_engine_solves_batch(rng):
 def test_sprint_engine_requires_mixed():
     import jax.numpy as jnp
 
-    from abip_tpu.parallel.batched import device_solve_lp
+    from abip.parallel.batched import device_solve_lp
 
     A = jnp.eye(2)
     with pytest.raises(ValueError, match="requires precision='mixed'"):
         device_solve_lp(A, jnp.ones(2), jnp.ones(2), engine="sprint")
 
 
-import jax  # noqa: E402  (backend marker below)
-
-tpu_only = pytest.mark.skipif(jax.default_backend() != "tpu",
-                              reason="needs a real TPU backend")
-
-
-@tpu_only
-def test_bcsr_pallas_compiled_matches_xla(rng):
-    """Compiled-TPU validation of the Pallas BCSR kernel (VERDICT round 1
-    #2): compiled kernel output must match the XLA fallback."""
-    import scipy.sparse as sp
-    import jax.numpy as jnp
-
-    from abip_tpu.ops.spmv_pallas import BCSRMatrix, bcsr_matvec
-
-    A = sp.random(64, 256, density=0.1, random_state=7, format="csr")
-    B = BCSRMatrix.from_scipy(A)
-    x = rng.standard_normal(256).astype(np.float32)
-    y_xla = np.asarray(bcsr_matvec(B, jnp.asarray(x), use_pallas=False))
-    y_pal = np.asarray(bcsr_matvec(B, jnp.asarray(x), use_pallas=True))
-    np.testing.assert_allclose(y_pal, y_xla, rtol=1e-5, atol=1e-5)
-
-
-@tpu_only
-def test_sprint_pallas_compiled_matches_xla(rng):
-    """Compiled fused_admm_sprint must match the identical-math XLA path."""
-    import jax.numpy as jnp
-
-    from abip_tpu.ops.admm_pallas import fused_admm_sprint
-
-    m, n = 16, 48
-    l = m + n + 1
-    A = rng.standard_normal((m, n)).astype(np.float32)
-    N = 1e-3 * np.eye(m) + A @ A.T
-    Ninv = np.linalg.inv(N).astype(np.float32)
-    h = rng.standard_normal(l).astype(np.float32)
-    g = rng.standard_normal(l).astype(np.float32)
-    u = np.abs(rng.standard_normal(l)).astype(np.float32)
-    v = np.abs(rng.standard_normal(l)).astype(np.float32)
-    args = (jnp.asarray(A), jnp.asarray(Ninv), jnp.asarray(h),
-            jnp.asarray(g), 1e-3, 0.7, 0.05, 1.8, jnp.asarray(u),
-            jnp.asarray(v))
-    u_x, v_x = fused_admm_sprint(*args, T=8, use_pallas=False)
-    u_p, v_p = fused_admm_sprint(*args, T=8, use_pallas=True)
-    np.testing.assert_allclose(np.asarray(u_p), np.asarray(u_x),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(v_p), np.asarray(v_x),
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_qcp_iteration_cost_model():
     """Conic roofline sanity: Woodbury dual form (2m <= n) costs less
     than the primal form; ceilings are positive and finite."""
-    from abip_tpu.utils.roofline import qcp_iteration_cost
+    from abip.utils.roofline import qcp_iteration_cost
 
-    dual = qcp_iteration_cost(100, 1000, form="auto", chip="tpu_v5e")
-    primal = qcp_iteration_cost(100, 1000, form="primal", chip="tpu_v5e")
+    kind = "NVIDIA H100 80GB HBM3"
+    dual = qcp_iteration_cost(100, 1000, form="auto", device_kind=kind)
+    primal = qcp_iteration_cost(100, 1000, form="primal", device_kind=kind)
     assert dual.bytes_moved < primal.bytes_moved
     assert 0 < dual.ceiling_iters_per_sec < float("inf")
     # thinning the inner criterion strictly lowers bytes per iteration
-    thin = qcp_iteration_cost(100, 1000, inner_crit_period=8)
-    dense = qcp_iteration_cost(100, 1000, inner_crit_period=1)
+    thin = qcp_iteration_cost(100, 1000, inner_crit_period=8,
+                              device_kind=kind)
+    dense = qcp_iteration_cost(100, 1000, inner_crit_period=1,
+                               device_kind=kind)
     assert thin.bytes_moved < dense.bytes_moved
 
 
 def test_sprint_stop_matches_hsd_and_stops(rng):
     """fused_admm_sprint_stop with thresh=0 must reproduce T steps of the
     hsd math (f32); with a huge thresh it must stop after one probe."""
-    from abip_tpu import hsd
-    from abip_tpu.ops.admm_pallas import fused_admm_sprint_stop
+    from abip import hsd
+    from abip.ops.admm_sprint import fused_admm_sprint_stop
 
     m, n = 8, 24
     l = m + n + 1
@@ -256,55 +174,43 @@ def test_sprint_stop_matches_hsd_and_stops(rng):
         u_ref, v_ref = hsd.admm_update(u_ref, v_ref, u_ref, u_t, lam,
                                        alpha, m)
 
-    for kwargs in (dict(use_pallas=False), dict(interpret=True)):
-        u_k, v_k, t_k, q_k = fused_admm_sprint_stop(
-            A, Ninv, h, g, rho_y, g_th, lam, alpha, 0.0, u0, u0,
-            T=T, probe=4, **kwargs)
-        assert int(t_k) == T
-        assert float(q_k) > 0
-        np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_ref),
-                                   rtol=2e-5, atol=2e-5)
-        # huge threshold: the in-kernel stop fires at the first probe
-        _, _, t_s, _ = fused_admm_sprint_stop(
-            A, Ninv, h, g, rho_y, g_th, lam, alpha, 1e9, u0, u0,
-            T=T, probe=4, **kwargs)
-        assert int(t_s) == 4
+    u_k, v_k, t_k, q_k = fused_admm_sprint_stop(
+        A, Ninv, h, g, rho_y, g_th, lam, alpha, 0.0, u0, u0, T=T, probe=4)
+    assert int(t_k) == T
+    assert float(q_k) > 0
+    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_ref),
+                               rtol=2e-5, atol=2e-5)
+    # huge threshold: the in-loop stop fires at the first probe
+    _, _, t_s, _ = fused_admm_sprint_stop(
+        A, Ninv, h, g, rho_y, g_th, lam, alpha, 1e9, u0, u0, T=T, probe=4)
+    assert int(t_s) == 4
 
 
-def test_sprint_stop_vmap_grid_matches_fallback(rng):
-    """The custom_vmap batch rule (explicit grid-over-instances kernel)
-    must match the vmapped XLA fallback (interpret mode)."""
-    import jax
+def test_lp_iteration_cost_model():
+    """LP roofline: the mixed mode streams f32 A (half the f64 bytes),
+    and the f64 ceiling uses the f64 peak, not a fraction of f32."""
+    from abip.utils.roofline import device_peaks, lp_iteration_cost
 
-    from abip_tpu.ops.admm_pallas import fused_admm_sprint_stop
+    kind = "NVIDIA H100 80GB HBM3"
+    mixed = lp_iteration_cost(50, 2000, precision="mixed", device_kind=kind)
+    f64 = lp_iteration_cost(50, 2000, precision="f64", device_kind=kind)
+    assert f64.bytes_moved == pytest.approx(2 * mixed.bytes_moved)
+    peaks = device_peaks(kind)
+    assert f64.ceiling_iters_per_sec_flops == pytest.approx(
+        peaks["f64_tflops"] * 1e12 / f64.flops)
 
-    B, m, n = 3, 8, 24
-    l = m + n + 1
-    A = rng.standard_normal((B, m, n)).astype(np.float32) * 0.3
-    Ninv = np.stack([np.linalg.inv(1e-3 * np.eye(m) + a @ a.T)
-                     for a in A]).astype(np.float32)
-    h = rng.standard_normal((B, l)).astype(np.float32) * 0.1
-    g = rng.standard_normal((B, l)).astype(np.float32) * 0.1
-    u = np.abs(rng.standard_normal((B, l))).astype(np.float32)
-    v = np.abs(rng.standard_normal((B, l))).astype(np.float32)
-    th = np.zeros(B, np.float32)
 
-    def call(**kw):
-        return jax.vmap(
-            lambda A_, N_, h_, g_, t_, u_, v_: fused_admm_sprint_stop(
-                A_, N_, h_, g_, 1e-3, 0.7, 0.05, 1.8, t_, u_, v_,
-                T=8, probe=4, **kw))(
-            *map(jnp.asarray, (A, Ninv, h, g, th, u, v)))
+def test_roofline_unknown_device_raises():
+    """A device kind with no published peaks is an error, not a default."""
+    from abip.utils.roofline import device_peaks, lp_iteration_cost
 
-    ux, vx, tx, qx = call(use_pallas=False)
-    up, vp, tp, qp = call(use_pallas=True, interpret=True)
-    assert np.asarray(tp).tolist() == np.asarray(tx).tolist()
-    np.testing.assert_allclose(np.asarray(up), np.asarray(ux),
-                               rtol=3e-5, atol=3e-5)
-    np.testing.assert_allclose(np.asarray(qp), np.asarray(qx),
-                               rtol=1e-4, atol=1e-6)
+    assert device_peaks("NVIDIA H100 80GB HBM3")["hbm_gbps"] == 3350.0
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks("cpu")
+    with pytest.raises(KeyError):
+        lp_iteration_cost(50, 2000, device_kind="NVIDIA A100-SXM4-80GB")
 
 
 def test_sprint2_engine_solves_batch(rng):
@@ -314,7 +220,7 @@ def test_sprint2_engine_solves_batch(rng):
     import jax.numpy as jnp
     from scipy.optimize import linprog
 
-    from abip_tpu.parallel.batched import solve_lp_batch
+    from abip.parallel.batched import solve_lp_batch
     from tests.conftest import random_lp
 
     B, m, n = 3, 20, 60
@@ -343,7 +249,7 @@ def test_sprint2_terminates_on_ipm_cap(rng):
     loop re-ran the lane forever (advisor finding, round 3)."""
     import jax.numpy as jnp
 
-    from abip_tpu.parallel.batched import solve_lp_batch
+    from abip.parallel.batched import solve_lp_batch
     from tests.conftest import random_lp
 
     B, m, n = 3, 20, 60
@@ -369,7 +275,7 @@ def test_mu_stop_and_init_state_resume(rng):
     iteration counters."""
     import jax.numpy as jnp
 
-    from abip_tpu.parallel.batched import device_solve_lp
+    from abip.parallel.batched import device_solve_lp
     from tests.conftest import random_lp
 
     A, b, c = random_lp(np.random.default_rng(11), 15, 45)

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh
 from scipy.optimize import linprog
 
-import abip_tpu
-from abip_tpu.parallel.batched import device_solve_lp, solve_lp_batch
-from abip_tpu.parallel.sharded import make_sharded_kkt_solver
+import abip
+from abip.parallel.batched import device_solve_lp, solve_lp_batch
+from abip.parallel.sharded import make_sharded_kkt_solver
 from tests.conftest import random_lp
 
 
@@ -95,8 +95,8 @@ def test_graft_entry_contract():
 
 
 def test_batched_qcp_soc_toys(rng):
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     B, d = 4, 3
     As = np.zeros((B, d, d + 1))
@@ -119,8 +119,8 @@ def test_qcp_device_single_and_forms(rng):
     """solve_qcp_device (B=1 whole-solve program) matches the known
     optimum, and the primal and Woodbury Schur forms agree (same
     system, factored n x n vs m x m)."""
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_device
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_device
     from benchmarks.conic_mini import randcone
 
     cones = ConeSpec(soc=(8,), nonneg=22)
@@ -147,7 +147,7 @@ def test_qcp_device_single_and_forms(rng):
 
 
 def test_lasso_sweep_batch(rng):
-    from abip_tpu.problems.lasso import solve_lasso_batch, solve_lasso
+    from abip.problems.lasso import solve_lasso_batch, solve_lasso
 
     B, m, n = 3, 20, 8
     Xs = rng.standard_normal((B, m, n))
@@ -161,7 +161,7 @@ def test_lasso_sweep_batch(rng):
 
 
 def test_mixed_inverse_solver_matches_cholesky(rng):
-    from abip_tpu.parallel.batched import device_solve_lp
+    from abip.parallel.batched import device_solve_lp
     from tests.conftest import random_lp
 
     A, b, c = random_lp(rng, 10, 30)
@@ -180,7 +180,7 @@ def test_qres_period_solves_to_tolerance(rng):
     but the solution contract (eps, scipy oracle) must hold."""
     from scipy.optimize import linprog
 
-    from abip_tpu.parallel.batched import device_solve_lp
+    from abip.parallel.batched import device_solve_lp
     from tests.conftest import random_lp
 
     A, b, c = random_lp(rng, 12, 40)
@@ -197,12 +197,12 @@ def test_qres_period_solves_to_tolerance(rng):
                                               ("mixed", "steps"),
                                               ("mixed", "sprint")])
 def test_chunk_cadence_matches_oracle(rng, precision, engine):
-    """cadence='chunk' (the structural, vmap-safe cadence that fixed the
-    measured 0.27x TPU batch collapse): single-instance solves to the
+    """cadence='chunk' (the structural, vmap-safe cadence that keeps
+    the f64 check off every vmapped iteration): single-instance solves to the
     scipy oracle in every engine/precision combination."""
     from scipy.optimize import linprog
 
-    from abip_tpu.parallel.batched import device_solve_lp
+    from abip.parallel.batched import device_solve_lp
     from tests.conftest import random_lp
 
     A, b, c = random_lp(rng, 12, 40)
@@ -218,7 +218,7 @@ def test_chunk_cadence_matches_oracle(rng, precision, engine):
 
 def test_chunk_cadence_batch_default_and_validation(rng):
     """solve_lp_batch defaults to cadence='chunk'; bad values raise."""
-    from abip_tpu.parallel.batched import device_solve_lp, solve_lp_batch
+    from abip.parallel.batched import device_solve_lp, solve_lp_batch
 
     with pytest.raises(ValueError, match="cadence"):
         device_solve_lp(jnp.eye(2), jnp.ones(2), jnp.ones(2),
@@ -237,7 +237,7 @@ def test_stream_driver_matches_oracle(rng):
     """Segmented streaming driver: every instance solved to the scipy
     oracle; lane swap exercised by N > B; a parked lane (N not a
     multiple of B) stays frozen."""
-    from abip_tpu.parallel.segmented import solve_lp_stream
+    from abip.parallel.segmented import solve_lp_stream
 
     probs, refs = [], []
     for _ in range(5):
@@ -257,7 +257,7 @@ def test_stream_driver_matches_oracle(rng):
 
 
 def test_heterogeneous_padded_suite(rng):
-    from abip_tpu.parallel.batched import solve_lp_suite
+    from abip.parallel.batched import solve_lp_suite
 
     shapes = [(8, 25), (12, 40), (10, 33)]
     probs, refs = [], []
@@ -275,8 +275,8 @@ def test_heterogeneous_padded_suite(rng):
 
 
 def test_batched_qcp_mixed_matches_f64(rng):
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     B, d = 3, 4
     As = np.zeros((B, d, d + 1))
@@ -302,22 +302,22 @@ def test_batched_qcp_mixed_matches_f64(rng):
 def test_workspace_shard_over_mesh(rng):
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
-    from abip_tpu.lp import LPWorkspace
-    import abip_tpu
+    from abip.lp import LPWorkspace
+    import abip
 
     ndev = len(jax.devices())
     m, n = 8 * ndev, 200
     A, b, c = random_lp(rng, m, n)
     ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs").fun
     mesh = Mesh(np.array(jax.devices()), ("rows",))
-    w = LPWorkspace(A, b, c, abip_tpu.Settings(eps=1e-5, adaptive=False))
+    w = LPWorkspace(A, b, c, abip.Settings(eps=1e-5, adaptive=False))
     w.shard(mesh)
     sol = w.solve()
     assert sol.status_name.startswith("Solved")
     assert sol.pobj == pytest.approx(ref, abs=1e-3 * (1 + abs(ref)))
     with pytest.raises(ValueError, match="divisible"):
         LPWorkspace(A[: 8 * ndev - 1], b[: 8 * ndev - 1], c,
-                    abip_tpu.Settings(eps=1e-4)).shard(mesh)
+                    abip.Settings(eps=1e-4)).shard(mesh)
 
 
 def test_sharded_full_solve_matches_unsharded_cg(rng):
@@ -325,14 +325,14 @@ def test_sharded_full_solve_matches_unsharded_cg(rng):
     sharded solve must track the unsharded CG solve's trajectory."""
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
-    from abip_tpu.lp import LPWorkspace
-    import abip_tpu
+    from abip.lp import LPWorkspace
+    import abip
 
     ndev = len(jax.devices())
     m, n = 8 * ndev, 160
     A, b, c = random_lp(rng, m, n)
     ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs").fun
-    s = abip_tpu.Settings(eps=1e-6, adaptive=False, linsys="cg")
+    s = abip.Settings(eps=1e-6, adaptive=False, linsys="cg")
     base = LPWorkspace(A, b, c, s).solve()
     mesh = Mesh(np.array(jax.devices()), ("rows",))
     sh = LPWorkspace(A, b, c, s).shard(mesh, linsys="cg").solve()
@@ -349,13 +349,13 @@ def test_sharded_dense_replicates_factor(rng):
     reproduces the unsharded dense trajectory EXACTLY."""
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
-    from abip_tpu.lp import LPWorkspace
-    import abip_tpu
+    from abip.lp import LPWorkspace
+    import abip
 
     ndev = len(jax.devices())
     m, n = 8 * ndev, 160
     A, b, c = random_lp(rng, m, n)
-    s = abip_tpu.Settings(eps=1e-6, adaptive=False)
+    s = abip.Settings(eps=1e-6, adaptive=False)
     base = LPWorkspace(A, b, c, s).solve()
     mesh = Mesh(np.array(jax.devices()), ("rows",))
     w = LPWorkspace(A, b, c, s)
@@ -370,8 +370,8 @@ def test_sharded_dense_replicates_factor(rng):
 def test_qcp_inner_crit_period(rng):
     """Thinned conic inner-criterion cadence: statuses and objectives
     match the every-iteration cadence at the solve tolerance."""
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     B, m, n = 3, 8, 15
     cones = ConeSpec(soc=(5,), nonneg=10)
@@ -398,8 +398,8 @@ def test_qcp_inverse_solver_equivalent():
     """Conic explicit-inverse Schur apply: same statuses, oracle-accurate
     objectives (trajectories may differ from trisolves in f32, unlike the
     LP driver where they are bit-identical)."""
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch
     from benchmarks.conic_mini import randcone
 
     cones = ConeSpec(soc=(5,), nonneg=10)
@@ -425,8 +425,8 @@ def test_qcp_mixed_anchor_reanchoring_robustness():
     previously ran >100k iterations and blew up).  With periodic
     re-anchoring every lane solves to the exact oracle, with and without
     built-in equilibration."""
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch
     from benchmarks.conic_mini import randcone
 
     cones = ConeSpec(soc=(5,), nonneg=10)
@@ -455,8 +455,8 @@ def test_cadence_knob_validation():
         with pytest.raises(ValueError, match=">= 1"):
             device_solve_lp(A, b, c, **kw)
 
-    from abip_tpu.cones import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+    from abip.cones import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch
 
     As = jnp.ones((1, 2, 3))
     bs = jnp.ones((1, 2))
@@ -483,7 +483,7 @@ def test_lp_mixed_anchor_cap_and_avg_period(rng):
 def test_host_pool_matches_oracle(rng):
     """Thread-pool suite driver: results identical to serial solves and
     correct vs scipy (shared jit cache; XLA releases the GIL)."""
-    from abip_tpu.parallel.host_pool import solve_lp_pool
+    from abip.parallel.host_pool import solve_lp_pool
 
     probs, refs = [], []
     for _ in range(4):
@@ -506,8 +506,8 @@ def test_conic_workspace_shard_full_solve(rng):
         pytest.skip("needs multiple devices")
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.qcp import ConicWorkspace, conic_defaults
+    from abip import ConeSpec
+    from abip.qcp import ConicWorkspace, conic_defaults
 
     ndev = len(jax.devices())
     m = 8 * ndev
@@ -529,8 +529,8 @@ def test_conic_workspace_shard_full_solve(rng):
 def test_conic_shard_requires_cg(rng):
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.qcp import ConicWorkspace
+    from abip import ConeSpec
+    from abip.qcp import ConicWorkspace
 
     _, A, b, c, cn, _ = randcone("d", 8, ConeSpec(soc=(5,), nonneg=19), 3)
     w = ConicWorkspace(A, b, c, cn)   # dense Schur default at this size

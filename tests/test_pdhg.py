@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from abip_tpu.pdhg import estimate_spectral_norm, solve_lp_pdhg
+from abip.pdhg import estimate_spectral_norm, solve_lp_pdhg
 
 
 def random_lp(seed, m, n):
@@ -61,9 +61,9 @@ def test_spectral_norm_estimate():
 def test_pdhg_via_mps(tmp_path):
     import scipy.sparse as sp
 
-    from abip_tpu.io.mps import GeneralLP
-    from abip_tpu.io.mps_write import write_mps
-    from abip_tpu.io.presolve import solve_mps
+    from abip.io.mps import GeneralLP
+    from abip.io.mps_write import write_mps
+    from abip.io.presolve import solve_mps
 
     A, b, c = random_lp(9, 12, 30)
     m, n = A.shape
@@ -116,7 +116,7 @@ def test_pdhg_batch_matches_single_and_shards():
     import numpy as np
     from jax.sharding import Mesh
 
-    from abip_tpu.pdhg import solve_lp_pdhg_batch
+    from abip.pdhg import solve_lp_pdhg_batch
 
     B, m, n = 4, 15, 45
     rng = np.random.default_rng(1)
@@ -150,8 +150,8 @@ def test_conic_pdhg_mixed_cones_oracle():
     RSOC/free/nonneg mixes."""
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.pdhg import solve_qcp_pdhg
+    from abip import ConeSpec
+    from abip.pdhg import solve_qcp_pdhg
 
     for seed, cones in [(1, ConeSpec(soc=(6, 4), nonneg=15)),
                         (2, ConeSpec(rsoc=(5,), free=2, nonneg=10)),
@@ -161,7 +161,7 @@ def test_conic_pdhg_mixed_cones_oracle():
         assert sol.status_name == "Solved"
         assert abs(sol.pobj - star) / (1 + abs(star)) < 1e-5
         # primal must be (near-)feasible for the cones
-        from abip_tpu.cones import ConeLayout, cone_membership_violation
+        from abip.cones import ConeLayout, cone_membership_violation
         import jax.numpy as jnp
         viol = float(cone_membership_violation(jnp.asarray(sol.x),
                                                ConeLayout(cn)))
@@ -172,8 +172,8 @@ def test_conic_pdhg_agrees_with_admm_portfolio():
     """PDHG and the ADMM conic driver agree on the portfolio SOCP."""
     from benchmarks.conic_mini import portfolio
 
-    from abip_tpu.pdhg import solve_qcp_pdhg
-    from abip_tpu.qcp import solve_qcp
+    from abip.pdhg import solve_qcp_pdhg
+    from abip.qcp import solve_qcp
 
     name, A, b, c, cones, _ = portfolio(20, 5, 9)
     p = solve_qcp_pdhg(A, b, c, cones, eps=1e-7)
@@ -184,8 +184,8 @@ def test_conic_pdhg_agrees_with_admm_portfolio():
 
 def test_conic_pdhg_detects_infeasible():
     """x in SOC(3) forces x1 >= 0; the row x1 = -1 is infeasible."""
-    from abip_tpu import ConeSpec
-    from abip_tpu.pdhg import solve_qcp_pdhg
+    from abip import ConeSpec
+    from abip.pdhg import solve_qcp_pdhg
 
     A = np.array([[1.0, 0.0, 0.0]])
     b = np.array([-1.0])
@@ -200,8 +200,8 @@ def test_conic_pdhg_mixed_precision_and_batch():
     the single-instance path."""
     from benchmarks.conic_mini import randcone
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.pdhg import solve_qcp_pdhg, solve_qcp_pdhg_batch
+    from abip import ConeSpec
+    from abip.pdhg import solve_qcp_pdhg, solve_qcp_pdhg_batch
 
     cones = ConeSpec(soc=(4,), nonneg=8)
     insts = [randcone(f"b{s}", 6, cones, 20 + s) for s in range(3)]

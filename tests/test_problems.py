@@ -7,7 +7,7 @@ other and against scipy.optimize on the (smooth-ified) primal.
 import numpy as np
 import pytest
 
-from abip_tpu.problems import solve_lasso, solve_svm
+from abip.problems import solve_lasso, solve_svm
 
 
 def ista_lasso(X, y, lam, iters=20000):
@@ -125,7 +125,7 @@ def test_svm_socp_operator_matches_dense_matrix(rng):
     dense matrix (matvec/rmatvec adjoint consistency)."""
     import jax.numpy as jnp
 
-    from abip_tpu.problems.svm import svm_operator_socp, svm_to_conic_socp
+    from abip.problems.svm import svm_operator_socp, svm_to_conic_socp
 
     m, n = 12, 3
     X = rng.standard_normal((m, n))
@@ -146,8 +146,8 @@ def test_svm_socp_operator_matches_dense_matrix(rng):
 
 
 def test_diagonal_q_matches_dense_q(rng):
-    from abip_tpu import solve_qcp
-    from abip_tpu.problems.svm import svm_to_conic_qp
+    from abip import solve_qcp
+    from abip.problems.svm import svm_to_conic_qp
 
     m, n = 20, 3
     X = rng.standard_normal((m, n))

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-import abip_tpu
-from abip_tpu import ConeSpec
+import abip
+from abip import ConeSpec
 from tests.conftest import random_lp
 
 
@@ -29,7 +29,7 @@ def kkt_check(A, b, c, Q, sol, tol):
 def test_lp_as_conic(rng):
     A, b, c = random_lp(rng, 15, 40)
     ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs").fun
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec.lp(40), eps=1e-5)
+    sol = abip.solve_qcp(A, b, c, ConeSpec.lp(40), eps=1e-5)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     assert sol.pobj == pytest.approx(ref, abs=1e-3 * (1 + abs(ref)))
     kkt_check(A, b, c, None, sol, 1e-3)
@@ -44,7 +44,7 @@ def test_soc_norm_minimization(rng):
     b = a
     c = np.zeros(n)
     c[0] = 1.0
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec(soc=(5,)), eps=1e-5)
+    sol = abip.solve_qcp(A, b, c, ConeSpec(soc=(5,)), eps=1e-5)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     assert sol.pobj == pytest.approx(np.linalg.norm(a), abs=1e-3)
 
@@ -59,7 +59,7 @@ def test_rsoc_squared_norm(rng):
     b = np.concatenate([[1.0], a])
     c = np.zeros(n)
     c[0] = 1.0
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec(rsoc=(5,)), eps=1e-5)
+    sol = abip.solve_qcp(A, b, c, ConeSpec(rsoc=(5,)), eps=1e-5)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     assert sol.pobj == pytest.approx(0.5 * np.sum(a * a), abs=1e-3)
 
@@ -73,7 +73,7 @@ def test_qp_box_analytic():
     c = -z
     A = np.ones((1, n))
     b = np.array([1.0])
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec.lp(n), Q=Q, eps=1e-6)
+    sol = abip.solve_qcp(A, b, c, ConeSpec.lp(n), Q=Q, eps=1e-6)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
 
     # analytic simplex projection
@@ -95,7 +95,7 @@ def test_random_eq_qp_kkt(rng):
     x_free = rng.standard_normal(n)
     b = A @ x_free
     c = rng.standard_normal(n)
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec(free=n), Q=Q, eps=1e-6)
+    sol = abip.solve_qcp(A, b, c, ConeSpec(free=n), Q=Q, eps=1e-6)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     # analytic: solve [[Q, A'],[A, 0]] [x; -y] = [-c; b]
     KKT = np.block([[Q, A.T], [A, np.zeros((m, m))]])
@@ -132,7 +132,7 @@ def test_mixed_cones(rng):
     Ap = A[:, perm]
     cp = c[perm]
     cones = ConeSpec(soc=(1 + n_assets,), nonneg=n_assets)
-    sol = abip_tpu.solve_qcp(Ap, b, cp, cones, eps=1e-5)
+    sol = abip.solve_qcp(Ap, b, cp, cones, eps=1e-5)
     assert sol.status_name in ("Solved", "Solved/Inaccurate")
     w = sol.x[1 + n_assets :]
     assert w.sum() == pytest.approx(1.0, abs=1e-3)
@@ -143,9 +143,9 @@ def test_mixed_cones(rng):
 
 def test_unified_dispatch(rng):
     A, b, c = random_lp(rng, 10, 30)
-    s_lp = abip_tpu.solve(A, b, c, eps=1e-5)
+    s_lp = abip.solve(A, b, c, eps=1e-5)
     assert type(s_lp).__name__ == "LPSolution"
-    s_conic = abip_tpu.solve(A, b, c, Q=np.eye(30), eps=1e-5)
+    s_conic = abip.solve(A, b, c, Q=np.eye(30), eps=1e-5)
     assert type(s_conic).__name__ == "ConicSolution"
     assert s_lp.status_name.startswith("Solved")
     assert s_conic.status_name.startswith("Solved")
@@ -154,7 +154,7 @@ def test_unified_dispatch(rng):
 def test_inverse_mixed_dense_mode_matches_chol(rng):
     """dense_mode='inverse_mixed' (f32 explicit inverse + f64 IR) must
     track the Cholesky trajectory on LP-cone and SOC instances."""
-    from abip_tpu.qcp import ConicWorkspace, conic_defaults
+    from abip.qcp import ConicWorkspace, conic_defaults
 
     A, b, c = random_lp(rng, 15, 40)
     s0 = conic_defaults(eps=1e-6)
@@ -178,7 +178,7 @@ def test_conic_shape_shared_compile(rng):
     instance data rides as pytree arguments into the module-level jitted
     driver, not as closure constants (per-instance recompiles measured
     ~0.8s each before the refactor)."""
-    from abip_tpu.qcp import _run_inner_shared
+    from abip.qcp import _run_inner_shared
 
     cones = ConeSpec(soc=(6,), nonneg=17)
     sols = []
@@ -189,7 +189,7 @@ def test_conic_shape_shared_compile(rng):
         x0 = np.abs(r.standard_normal(cones.dim)) + 0.5
         b = A @ x0
         c = A.T @ r.standard_normal(9) + np.abs(r.standard_normal(cones.dim))
-        sols.append(abip_tpu.solve_qcp(A, b, c, cones, eps=1e-4))
+        sols.append(abip.solve_qcp(A, b, c, cones, eps=1e-4))
         if before is None:
             before = _run_inner_shared._cache_size()
     assert _run_inner_shared._cache_size() == before  # second solve: no new compile

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-import abip_tpu
-from abip_tpu import ConeSpec
-from abip_tpu.qcp import ConicWorkspace, conic_defaults
-from abip_tpu.utils.checkpoint import ConicCheckpoint
+import abip
+from abip import ConeSpec
+from abip.qcp import ConicWorkspace, conic_defaults
+from abip.utils.checkpoint import ConicCheckpoint
 from tests.conftest import random_lp
 
 
@@ -105,7 +105,7 @@ def test_conic_sigint_best_effort(rng):
     threading.Timer(
         1.5, lambda: os.kill(os.getpid(), signal.SIGINT)).start()
     sol = w.solve()
-    assert sol.status == abip_tpu.Status.SIGINT
+    assert sol.status == abip.Status.SIGINT
     assert sol.status_name == "Interrupted"
     assert np.isfinite(sol.x).all()
 
@@ -135,9 +135,9 @@ def test_device_route_full_Q(rng):
     form) and matches the host driver on LP-cone and SOC-mixed QPs."""
     import jax.numpy as jnp
 
-    from abip_tpu import ConeSpec
-    from abip_tpu.parallel.batched_qcp import solve_qcp_batch, solve_qcp_device
-    from abip_tpu.qcp import solve_qcp
+    from abip import ConeSpec
+    from abip.parallel.batched_qcp import solve_qcp_batch, solve_qcp_device
+    from abip.qcp import solve_qcp
 
     m, n = 8, 20
     A = rng.standard_normal((m, n))

@@ -6,9 +6,9 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from abip_tpu.cones import ConeSpec, ConeLayout
-from abip_tpu.scaling import equilibrate, equilibrate_conic, equilibrate_sparse
-from abip_tpu.settings import Settings
+from abip.cones import ConeSpec, ConeLayout
+from abip.scaling import equilibrate, equilibrate_conic, equilibrate_sparse
+from abip.settings import Settings
 
 
 def test_equilibrate_reconstructs(rng):
@@ -80,9 +80,9 @@ def test_equilibrate_conic_diag_matches_full():
     trajectory-parity bug vs the reference C solver)."""
     import numpy as np
 
-    from abip_tpu.cones import ConeLayout, ConeSpec
-    from abip_tpu.qcp import conic_defaults
-    from abip_tpu.scaling import equilibrate_conic
+    from abip.cones import ConeLayout, ConeSpec
+    from abip.qcp import conic_defaults
+    from abip.scaling import equilibrate_conic
 
     rng = np.random.default_rng(4)
     cones = ConeSpec(soc=(4,), nonneg=8)

@@ -10,8 +10,8 @@ import math
 import numpy as np
 import pytest
 
-from abip_tpu.settings import Settings
-from abip_tpu import schedules
+from abip.settings import Settings
+from abip import schedules
 
 
 def _stgs(**kw):

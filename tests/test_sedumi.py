@@ -4,9 +4,9 @@ import pytest
 import scipy.io
 import scipy.sparse as sp
 
-import abip_tpu
-from abip_tpu import ConeSpec
-from abip_tpu.io.sedumi import from_sedumi, load_sedumi_mat, solve_sedumi
+import abip
+from abip import ConeSpec
+from abip.io.sedumi import from_sedumi, load_sedumi_mat, solve_sedumi
 
 
 def test_from_sedumi_permutation(rng):
@@ -54,7 +54,7 @@ def test_conic_infeasible_detected():
     A = np.array([[1.0]])
     b = np.array([-1.0])
     c = np.array([1.0])
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec.lp(1), eps=1e-5)
+    sol = abip.solve_qcp(A, b, c, ConeSpec.lp(1), eps=1e-5)
     assert "Infeasible" in sol.status_name
 
 
@@ -63,7 +63,7 @@ def test_conic_unbounded_detected():
     A = np.array([[1.0, -1.0]])
     b = np.array([0.0])
     c = np.array([-1.0, 0.0])
-    sol = abip_tpu.solve_qcp(A, b, c, ConeSpec.lp(2), eps=1e-5)
+    sol = abip.solve_qcp(A, b, c, ConeSpec.lp(2), eps=1e-5)
     assert "Unbounded" in sol.status_name
 
 

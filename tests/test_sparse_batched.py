@@ -17,7 +17,7 @@ def test_sparse_batch_smoke_vs_scipy():
     from scipy.optimize import linprog
 
     from benchmarks.generate import smoke_lp
-    from abip_tpu.parallel.sparse_batched import solve_lp_batch_coo
+    from abip.parallel.sparse_batched import solve_lp_batch_coo
 
     A, b, c = smoke_lp(m=30, n_rand=80, density=0.3, seed=4)
     rows, cols, vals = _coo(A)
@@ -33,7 +33,7 @@ def test_sparse_batch_pagerank_family():
     """Same-pattern family (alpha sweep): every lane must hit the exact
     optimum 1'x* = 1 of the PageRank LP."""
     from benchmarks.generate import pagerank_lp
-    from abip_tpu.parallel.sparse_batched import solve_lp_batch_coo
+    from abip.parallel.sparse_batched import solve_lp_batch_coo
 
     n, B = 600, 3
     alphas = [0.80, 0.85, 0.90]

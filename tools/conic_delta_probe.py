@@ -25,14 +25,11 @@ import sys
 import time
 
 import numpy as np
+import jax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _bsync(tree):
-    from abip_tpu.utils.timing import sync_packed as _s
-
-    return _s(tree)
 
 
 def main(argv=None):
@@ -56,7 +53,7 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from tools.conic_bench import family
-    from abip_tpu.parallel.batched_qcp import _solve_qcp_batch_jit
+    from abip.parallel.batched_qcp import _solve_qcp_batch_jit
 
     kw = dict(eps=args.eps, precision="mixed", normalize=True, rho_y=1e-3,
               max_admm=1_000_000, solver="inverse",
@@ -74,7 +71,7 @@ def main(argv=None):
         def tcall(label, fn):
             t0 = time.perf_counter()
             r = fn()
-            _bsync(r)
+            jax.block_until_ready(r)
             rec[label] = round(time.perf_counter() - t0, 4)
             return r
 

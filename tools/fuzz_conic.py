@@ -102,8 +102,8 @@ def main(argv=None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from abip_tpu import ConeSpec, solve_qcp
-    from abip_tpu.qcp import conic_defaults
+    from abip import ConeSpec, solve_qcp
+    from abip.qcp import conic_defaults
 
     from benchmarks.conic_mini import randcone, randqcp
 
@@ -131,7 +131,7 @@ def main(argv=None):
         if args.batched:
             import jax.numpy as jnp
 
-            from abip_tpu.parallel.batched_qcp import solve_qcp_batch
+            from abip.parallel.batched_qcp import solve_qcp_batch
 
             As = jnp.asarray(np.stack([t[1] for t in insts]))
             bs = jnp.asarray(np.stack([t[2] for t in insts]))
@@ -157,7 +157,7 @@ def main(argv=None):
         for i in range(args.per_class):
             name, A, b, c, Q, pobj_star = insts[i]
             if args.batched:
-                from abip_tpu.settings import Status
+                from abip.settings import Status
 
                 class _S:  # adapt the batch lane to the solution shape
                     pass
@@ -171,7 +171,7 @@ def main(argv=None):
                 sol.s = np.asarray(rb.s[i])
                 wall = batch_wall / args.per_class
             elif args.method == "pdhg":
-                from abip_tpu.pdhg import solve_qcp_pdhg
+                from abip.pdhg import solve_qcp_pdhg
 
                 t0 = time.perf_counter()
                 sol = solve_qcp_pdhg(A, b, c, cones, eps=args.eps,

@@ -73,7 +73,7 @@ def main(argv=None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import abip_tpu
+    import abip
     from scipy.optimize import linprog
 
     from benchmarks.generate import infeasible_lp, unbounded_lp
@@ -91,7 +91,7 @@ def main(argv=None):
             rng = np.random.default_rng(seed)
             A, b, c = gen(rng)
             t0 = time.perf_counter()
-            sol = abip_tpu.solve_lp(A, b, c, eps=args.eps)
+            sol = abip.solve_lp(A, b, c, eps=args.eps)
             wall = time.perf_counter() - t0
             rec = {"class": cls, "i": i, "status": sol.status_name,
                    "admm": int(sol.admm_iters), "time": round(wall, 3)}

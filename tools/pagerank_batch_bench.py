@@ -1,10 +1,8 @@
-"""Batched same-pattern PageRank LP family: TPU vs 4-core host.
+"""Batched same-pattern PageRank LP family: device vs host driver.
 
-The r04 single-instance attempt lost 19x to the host (236 s vs 12.2 s
-at n=1e5: 19 barrier stages x ~5 iterations through the host driver
-left nothing to amortize per-stage dispatch against,
-`r04_pagerank_tpu/summary.json`).  This runs the VERDICT-prescribed
-experiment: a same-pattern family (alpha sweep over one graph,
+A single instance through the host driver leaves nothing to amortize
+per-stage dispatch against (19 barrier stages x ~5 iterations at
+n=1e5).  This runs a same-pattern family (alpha sweep over one graph,
 identical COO structure) with the ENTIRE solve on device
 (`parallel/sparse_batched.solve_lp_batch_coo`) against the host driver
 solving the same 8 instances serially (the reference regime: process-
@@ -24,6 +22,7 @@ import sys
 import time
 
 import numpy as np
+import jax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -69,8 +68,7 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from abip_tpu.parallel.sparse_batched import solve_lp_batch_coo
-    from abip_tpu.utils.timing import sync, sync_packed
+    from abip.parallel.sparse_batched import solve_lp_batch_coo
 
     out = {"purpose": "batched same-pattern sparse LP (pagerank alpha "
                       "family) fully on device vs 4-core host driver",
@@ -82,20 +80,20 @@ def main(argv=None):
         rows_j = jnp.asarray(rows)
         cols_j = jnp.asarray(cols)
         vj, bj, cj = map(jnp.asarray, (valss, bs, cs))
-        sync(jnp.sum(vj) + jnp.sum(bj) + jnp.sum(cj)
+        jax.block_until_ready(jnp.sum(vj) + jnp.sum(bj) + jnp.sum(cj)
              + jnp.sum(rows_j) + jnp.sum(cols_j))
         return rows_j, cols_j, vj, bj, cj, mats
 
     d = upload(0)
     r = solve_lp_batch_coo(*d[:5], m=args.n, n=args.n, eps=args.eps)
-    sync_packed((r.status, r.admm_iters, r.pobj))     # compile + warm
+    jax.device_get((r.status, r.admm_iters, r.pobj))     # compile + warm
     salt = int(time.time()) % 10_000
     mats_last = None
     for i in range(args.rounds):
         d = upload(salt + i + 1)
         t0 = time.perf_counter()
         r = solve_lp_batch_coo(*d[:5], m=args.n, n=args.n, eps=args.eps)
-        got = sync_packed((r.status, r.admm_iters, r.pobj))
+        got = jax.device_get((r.status, r.admm_iters, r.pobj))
         dt = time.perf_counter() - t0
         st, its, po = map(np.asarray, got)
         rec = {"wall_sec": round(dt, 3), "solved": int((st == 1).sum()),
@@ -106,12 +104,12 @@ def main(argv=None):
         print(json.dumps(rec), flush=True)
 
     if not args.no_host and mats_last is not None:
-        import abip_tpu
+        import abip
 
         t0 = time.perf_counter()
         solved = 0
         for (A, b, c) in mats_last:
-            sol = abip_tpu.solve_lp(A, b, c, eps=args.eps)
+            sol = abip.solve_lp(A, b, c, eps=args.eps)
             solved += sol.status_name.startswith("Solved")
         out["host_serial_same_instances"] = {
             "wall_sec": round(time.perf_counter() - t0, 3),

@@ -1,4 +1,4 @@
-"""Head-to-head conic parity: reference ABIP-QCP (QDLDL) vs abip_tpu.
+"""Head-to-head conic parity: reference ABIP-QCP (QDLDL) vs abip.
 
 Exports conic instances (cone order: soc, rsoc, free, zero, nonneg --
 identical in both solvers) in the binary format read by the stub-built
@@ -50,7 +50,7 @@ def export_conic(path, A, b, c, cones, Q=None):
 
 
 def instances(rng):
-    from abip_tpu import ConeSpec
+    from abip import ConeSpec
 
     out = []
     # SOC norm-min toys
@@ -112,12 +112,12 @@ def main(argv=None):
 
         jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ".")
-    import abip_tpu
+    import abip
 
     rng = np.random.default_rng(0)
     rows = []
     if args.qp:
-        from abip_tpu import ConeSpec
+        from abip import ConeSpec
         from benchmarks.conic_mini import randqcp
 
         gen = []
@@ -144,7 +144,7 @@ def main(argv=None):
             [args.ref_bin, path, str(args.eps)],
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[-1])
-        ours = abip_tpu.solve_qcp(A, b, c, cones, Q=Q, eps=args.eps)
+        ours = abip.solve_qcp(A, b, c, cones, Q=Q, eps=args.eps)
         row = {
             "name": name,
             "ref_status": ref["status"], "our_status": ours.status_name,

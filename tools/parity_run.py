@@ -1,4 +1,4 @@
-"""Head-to-head parity: reference C solver vs abip_tpu on IDENTICAL LPs.
+"""Head-to-head parity: reference C solver vs abip on IDENTICAL LPs.
 
 Exports generated instances in the binary format read by
 tools/reference_baseline_driver.c (compiled with -DPARITY_MAIN), runs
@@ -42,8 +42,8 @@ def _mps_instances(mps_dir):
     import glob
     import os
 
-    from abip_tpu.io.mps import read_mps
-    from abip_tpu.io.presolve import presolve_to_standard
+    from abip.io.mps import read_mps
+    from abip.io.presolve import presolve_to_standard
 
     for path in sorted(glob.glob(os.path.join(mps_dir, "*.mps"))):
         std = presolve_to_standard(read_mps(path))
@@ -74,7 +74,7 @@ def main(argv=None):
 
         jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ".")
-    import abip_tpu
+    import abip
     from benchmarks.generate import (hilbert_lp, infeasible_lp, smoke_lp,
                                      unbounded_lp)
 
@@ -133,7 +133,7 @@ def main(argv=None):
         raw = re.sub(r"\binf\b", "Infinity", raw)
         raw = re.sub(r"\bnan\b", "NaN", raw)
         ref = json.loads(raw)
-        ours = abip_tpu.solve_lp(A, b, c, eps=args.eps)
+        ours = abip.solve_lp(A, b, c, eps=args.eps)
         ref_pobj = ref.get("pobj", float("nan"))
         # normalize the two solvers' status vocabularies for comparison
         def _kind(s):
